@@ -1,0 +1,116 @@
+"""The fused mapping call: DP kernel + end-cell readout + row-lockstep
+traceback in one device pass, decoded on host.
+
+Counterpart of `hairsplitter_tpu/ops/align_device.py`: `readout_device`
+(:36-65), the Myers branch of `_align_traceback_rows_impl` (:286-320) and a
+copy of the host decoder `expand_rows_host` (:323-379). A chunk alignment
+ships home as 16 + B bytes: int32 cost, clip, start_i and start_b, then one
+token per query row, `d | up << 7`.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hairsplitter_tpu import native as _native
+
+from .align import INF, TB_D, TB_EQ, TB_I, TB_X, BandSpec
+from .align_myers_cuda import myers_traceback_device, traceback_scan_words
+
+
+def readout_device(res: dict, q_lens, t_lens, modes, spec: BandSpec):
+    """End-cell choice (`align_device.py:readout_device`): the global corner,
+    the best cell of the extension row, or the target-exhausted column;
+    first-index argmin. Returns int64 (cost, start_i, start_b, clip)."""
+    row_at_q = res["row_at_q"]
+    colmin_val = res["colmin_val"]
+    colmin_i = res["colmin_i"]
+    N, W = row_at_q.shape
+    dl = spec.dl
+    inf = int(INF)
+    q_lens = q_lens.to(torch.int64)
+    t_lens = t_lens.to(torch.int64)
+    bar = torch.arange(W, dtype=torch.int64, device=row_at_q.device)[None, :]
+    j = q_lens[:, None] + bar - dl
+    b_corner = t_lens - q_lens + dl
+    corner = row_at_q.gather(1, b_corner.clamp(0, W - 1)[:, None])[:, 0]
+    corner = torch.where((b_corner >= 0) & (b_corner < W), corner, inf)
+    masked = torch.where((j >= 0) & (j <= t_lens[:, None]), row_at_q, inf)
+    b_row = torch.argmin(masked, dim=1)
+    rowbest = masked.gather(1, b_row[:, None])[:, 0]
+
+    is_ext = modes.to(torch.int64) == 1
+    use_col = is_ext & (colmin_val < rowbest)
+    cost = torch.where(is_ext, torch.minimum(rowbest, colmin_val), corner)
+    start_i = torch.where(use_col, colmin_i, q_lens)
+    start_b = torch.where(use_col, t_lens - colmin_i + dl, torch.where(is_ext, b_row, b_corner))
+    clip = torch.where(use_col, q_lens - colmin_i, 0)
+    # unreachable end cell: empty walk
+    dead = cost >= inf
+    start_i = torch.where(dead, 0, start_i)
+    start_b = torch.where(dead, dl, start_b)
+    clip = torch.where(dead, 0, clip)
+    return cost, start_i, start_b, clip
+
+
+def align_traceback_rows(q, q_lens, t, t_lens, modes, spec: BandSpec) -> torch.Tensor:
+    """One fused pass per batch on q's device: Myers DP (the CUDA kernel on a
+    GPU), word readout and row-lockstep traceback. Returns uint8 [N, 16 + B],
+    byte-identical to `align_traceback_rows(kernel="myers")` of the JAX
+    package; decode with `expand_rows_host`."""
+    res, nl_rows, up_rows = myers_traceback_device(q, t, q_lens, t_lens, spec)
+    cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
+    toks = traceback_scan_words(nl_rows, up_rows, start_i, start_b)
+    meta = torch.stack([cost, clip, start_i, start_b], dim=1).to(torch.int32).contiguous()
+    return torch.cat([meta.view(torch.uint8).reshape(meta.shape[0], 16), toks], dim=1)
+
+
+def expand_rows_host(fused, qb, tb, spec: BandSpec):
+    """Host decode of `align_traceback_rows` (copy of the JAX package's
+    `ops/align_device.py:expand_rows_host`): rebuild the forward op streams
+    from the per-row (d, up) tokens; the native twin when available, else
+    vectorised numpy. Returns (ops_list, cost, clip)."""
+    fused = np.asarray(fused)
+    meta = fused[:, :16].copy().view(np.int32)  # cost, clip, start_i, start_b
+    toks = fused[:, 16:]
+    N, B = toks.shape
+
+    nat = _native.expand_rows(toks, meta, qb, tb, spec.dl)
+    if nat is not None:
+        flat, offsets = nat
+        ops_list = [flat[offsets[i] : offsets[i + 1]] for i in range(N)]
+        return ops_list, meta[:, 0], meta[:, 1]
+    dl = spec.dl
+    start_i = meta[:, 2].astype(np.int64)
+    start_b = meta[:, 3].astype(np.int64)
+    d = (toks & 0x7F).astype(np.int64)
+    up = (toks >> 7).astype(np.int64)
+    rows = np.arange(1, B + 1, dtype=np.int64)[None, :]
+    active = rows <= start_i[:, None]
+    d *= active
+    up *= active
+    # band position on arrival at row r: b_{r-1} = b_r - d_r + up_r
+    move = d - up
+    cums = np.cumsum(move, axis=1)
+    b_r = start_b[:, None] - (cums[:, -1:] - cums)
+    nl = b_r - d
+    b0 = np.where(start_i > 0, nl[:, 0] + up[:, 0], start_b)
+    jf = np.maximum(b0 - dl, 0)  # leading deletions once the query is spent
+    jcol = rows + nl - dl
+    tj = np.take_along_axis(tb, np.clip(jcol - 1, 0, tb.shape[1] - 1).astype(np.int64), axis=1)
+    same = qb[:, :B] == tj
+    opv = np.where(up == 1, TB_I, np.where(same, TB_EQ, TB_X)).astype(np.int8)
+    # interleave (counts, values): [D x jf, op_1, D x d_1, op_2, D x d_2, ...]
+    V = np.empty((N, 2 * B + 1), np.int8)
+    C = np.empty((N, 2 * B + 1), np.int64)
+    V[:, 0] = TB_D
+    C[:, 0] = jf
+    V[:, 1::2] = opv
+    C[:, 1::2] = active
+    V[:, 2::2] = TB_D
+    C[:, 2::2] = d
+    flat = np.repeat(V.ravel(), C.ravel())
+    totals = C.sum(axis=1)
+    ops_list = np.split(flat, np.cumsum(totals)[:-1])
+    return ops_list, meta[:, 0], meta[:, 1]

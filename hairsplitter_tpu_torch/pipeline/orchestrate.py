@@ -1,0 +1,602 @@
+"""End-to-end pipeline orchestration (reference `hairsplitter.py main()`).
+
+Unlike the reference — six separate processes glued by files in a tmp dir —
+this is one in-process engine: mapping, variant calling, read separation,
+contig creation and untangling pass data structures directly, and the interop
+files (SAM, COL, GRO, GAF, final GFA/FASTA, summary, log) are written for
+compatibility and debugging.
+
+Stage-level resume mirrors the reference's `--resume` (`hairsplitter.py:
+368-390,456-826`): the logged run fingerprint must match, then every stage
+whose artifact exists is loaded instead of recomputed; the first missing
+artifact makes all later stages recompute.
+
+Port of `hairsplitter_tpu/pipeline/orchestrate.py` for one process on one
+device (`PipelineConfig.device`, default "cuda"): same stages, artifacts,
+resume fingerprint and stage statistics. `--correct-assembly` (ROADMAP.md
+Queue 1 item 9), `-p medaka` (item 9) and distributed runs (item 10) are
+rejected with an error until they are ported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import dataclass, field, replace
+
+import numpy as np
+
+import torch
+
+from hairsplitter_tpu.core.seeding import MinimizerIndex
+from hairsplitter_tpu.constants import encode_seq
+from hairsplitter_tpu.io.fasta import (
+    LazyReadSeqs,
+    ReadStore,
+    filter_fastq_by_quality,
+    read_fasta,
+    write_fasta,
+)
+from hairsplitter_tpu.io.gfa import (
+    bluntify_graph,
+    cut_assembly,
+    fasta_to_gfa,
+    gfa_to_fasta,
+    parse_gfa,
+    write_gfa,
+)
+from hairsplitter_tpu.io.sam import parse_sam, write_sam
+from hairsplitter_tpu.ops.poa import poa_available
+from hairsplitter_tpu.pipeline.multiplicity import determine_multiplicity, write_ploidy
+
+from ..core.mapping import MapConfig, map_reads
+from ..io.col_gro import read_col, read_gro, write_col, write_gro
+from .call_variants import (
+    ContigVariants,
+    VariantCallConfig,
+    call_variants_from_prep,
+    finish_preps,
+    prepare_contig_host,
+)
+from .new_contigs import create_new_contigs, write_gaf
+from .separate_reads import ContigGroups, SeparateConfig, separate_reads_for_contig
+from .unzip import unzip
+
+# -x technology presets: the reference switches minimap2 presets per
+# technology (`hairsplitter.py:629`: map-ont / map-pb / map-hifi) and amplicon
+# windowing (`separate_reads.cpp:1494-1498`). Seeds mirror minimap2's
+# defaults: ont k15 w10, pacbio CLR k19 w10, hifi k19 w19 (low error needs no
+# dense rescue seeding; the variant caller's HiFi allele floor is already
+# error-driven, `call_variants.cpp:508`).
+TECH_PRESETS: dict[str, dict] = {
+    "ont": {"map": {"k": 15, "w": 10}},
+    "pacbio": {"map": {"k": 19, "w": 10, "hpc": True}},
+    "hifi": {"map": {"k": 19, "w": 19, "rescue": False, "max_divergence": 0.15}},
+    "amplicon": {},
+}
+
+
+@dataclass
+class PipelineConfig:
+    """Copy of `hairsplitter_tpu/pipeline/orchestrate.py:PipelineConfig`."""
+    technology: str = "ont"
+    correct_assembly: bool = False  # reference --correct-assembly (GenomeTailor)
+    polish_everything: bool = False
+    polisher: str = "racon"  # reference -p: racon (pileup vote) | medaka (NN caller)
+    dont_simplify: bool = False  # reference -s: skip GraphUnzip
+    auto_frac: float = 0.33  # reference -u
+    haploid_coverage: float = 0.0  # reference -c (ploidy inference)
+    # reference default 0.01 (`hairsplitter.py:45`) -> per-column coverage
+    # cap 50/abundance = 5000 (`separate_reads.cpp:1420-1426`)
+    rarest_strain_abundance: float = 0.01
+    max_contig_chunk: int = 300_000
+    min_read_quality: float = 0.0  # reference -q (fastq only)
+    resume: bool = False
+    no_clean: bool = False  # keep tmp files (reference --no_clean)
+    # -l: stream reads in batches and keep only a bounded LRU of sequences
+    # resident (reference low-memory mode, `hairsplitter.py:42`,
+    # `separate_reads.cpp:538-693`); auto-enabled when estimated coverage
+    # exceeds 1000x like the reference
+    low_memory: bool = False
+    debug: bool = False  # -d: keep tmp files + extra artifacts
+    threads: int = 1  # host threads over contigs (the reference's OpenMP axis)
+    map: MapConfig = field(default_factory=MapConfig)
+    variants: VariantCallConfig = field(default_factory=VariantCallConfig)
+    separate: SeparateConfig = field(default_factory=SeparateConfig)
+
+    # mapping batch size (reads per map_reads call) in low-memory mode
+    low_memory_read_batch: int = 2000
+    # torch device of every device stage ("cuda" unless asked otherwise)
+    device: str = "cuda"
+
+
+def resolve_device(name: str) -> torch.device:
+    """The run's torch device; "cuda" requires a visible GPU (no silent CPU
+    fallback)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch sees no CUDA device "
+            "(pass --device cpu to run the plain PyTorch versions on the CPU)"
+        )
+    return dev
+
+
+def apply_tech_preset(cfg: PipelineConfig) -> PipelineConfig:
+    """Fill mapping params from the -x technology preset, but never clobber
+    values the caller changed from the MapConfig defaults — like minimap2,
+    where user params appended after `-x map-ont` take precedence (the
+    reference builds its command that way, `hairsplitter.py:629`)."""
+    preset = TECH_PRESETS.get(cfg.technology, {})
+    out = cfg
+    if preset.get("map"):
+        defaults = type(cfg.map)()
+        eff = {
+            k: v
+            for k, v in preset["map"].items()
+            if getattr(cfg.map, k) == getattr(defaults, k)
+        }
+        if eff:
+            out = replace(out) if out is cfg else out
+            out.map = replace(out.map, **eff)
+    return out
+
+
+class Logger:
+    """Copy of `hairsplitter_tpu/pipeline/orchestrate.py:Logger`."""
+    def __init__(self, path: str):
+        self.path = path
+        self.t0 = time.time()
+
+    def log(self, msg: str) -> None:
+        line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] (+{time.time()-self.t0:7.1f}s) {msg}"
+        print(line, flush=True)
+        with open(self.path, "a") as f:
+            f.write(line + "\n")
+
+
+class StageStats:
+    """Per-stage wall time and throughput counters (SURVEY §5 tracing gap:
+    the reference has only ad-hoc timers; the log and stage_stats.json get real
+    alignments/s / reads-phased/s numbers)."""
+
+    def __init__(self, log: Logger, path: str):
+        self.log = log
+        self.path = path
+        self.stats: dict[str, dict] = {}
+
+    def record(self, stage: str, seconds: float, **counters) -> None:
+        entry = {"seconds": round(seconds, 3)}
+        for k, v in counters.items():
+            entry[k] = round(float(v), 3)
+            if seconds > 0:
+                entry[k + "_per_s"] = round(float(v) / seconds, 1)
+        self.stats[stage] = entry
+        rates = ", ".join(
+            f"{k}={entry[k + '_per_s']}/s" for k in counters if k + "_per_s" in entry
+        )
+        self.log.log(f"  [{stage}] {seconds:.1f}s {rates}")
+        with open(self.path, "w") as f:
+            json.dump(self.stats, f, indent=1)
+
+
+def _fingerprint(assembly_path: str, reads_path: str, cfg: PipelineConfig) -> str:
+    """Copy of `hairsplitter_tpu/pipeline/orchestrate.py:_fingerprint`."""
+    keys = (
+        os.path.abspath(assembly_path),
+        os.path.abspath(reads_path),
+        cfg.technology,
+        cfg.correct_assembly,
+        cfg.polisher,
+        cfg.polish_everything,
+        cfg.dont_simplify,
+        cfg.auto_frac,
+        cfg.haploid_coverage,
+        cfg.rarest_strain_abundance,
+        cfg.min_read_quality,
+        cfg.low_memory,
+        # mapping config changes the SAM: a --resume after e.g. changing
+        # --minimap2-params -k/-w must NOT reuse the stale alignment
+        # artifacts (round-4 verdict weak #5)
+        cfg.map.k,
+        cfg.map.w,
+        cfg.map.min_anchors,
+        cfg.map.max_occ,
+        cfg.map.max_divergence,
+        getattr(cfg.map, "hpc", False),
+    )
+    return "|".join(str(k) for k in keys)
+
+
+def run_pipeline(
+    assembly_path: str,
+    reads_path: str,
+    out_dir: str,
+    cfg: PipelineConfig = PipelineConfig(),
+):
+    """Run every stage on `cfg.device`; returns the final GFA path."""
+    if cfg.correct_assembly:
+        raise NotImplementedError(
+            "--correct-assembly (pipeline/tailor.py) is not ported yet: ROADMAP.md Queue 1, item 9"
+        )
+    if cfg.polisher == "medaka":
+        raise NotImplementedError(
+            "-p medaka (models/polisher.py) is not ported yet: ROADMAP.md Queue 1, item 9"
+        )
+    device = resolve_device(cfg.device)
+    os.makedirs(out_dir, exist_ok=True)
+    tmp_dir = os.path.join(out_dir, "tmp")
+    os.makedirs(tmp_dir, exist_ok=True)
+    log = Logger(os.path.join(out_dir, "hairsplitter.log"))
+    stats = StageStats(log, os.path.join(out_dir, "stage_stats.json"))
+    final_gfa = os.path.join(out_dir, "hairsplitter_final_assembly.gfa")
+    final_fasta = os.path.join(out_dir, "hairsplitter_final_assembly.fasta")
+    cfg = apply_tech_preset(cfg)
+    log.log(f"device: {device}")
+
+    # resume is honored only when the run fingerprint matches the previous
+    # invocation (the reference compares the logged command line,
+    # `hairsplitter.py:368-390`)
+    fp_path = os.path.join(tmp_dir, "run_fingerprint.txt")
+    fp = _fingerprint(assembly_path, reads_path, cfg)
+    resume = cfg.resume
+    if resume and os.path.exists(fp_path):
+        if open(fp_path).read().strip() != fp:
+            log.log("resume: parameters changed since the previous run — recomputing all stages")
+            resume = False
+    elif resume:
+        resume = False
+    with open(fp_path, "w") as f:
+        f.write(fp + "\n")
+
+    if resume and os.path.exists(final_gfa):
+        log.log("resume: final assembly already present, nothing to do")
+        return final_gfa
+
+    # ---- stage 0-2: load inputs, chunk contigs, map reads -------------------
+    log.log(f"STAGE 1 loading assembly {assembly_path}")
+    if assembly_path.endswith((".fa", ".fasta", ".fa.gz", ".fasta.gz")):
+        assembly = fasta_to_gfa(read_fasta(assembly_path))
+    else:
+        assembly = parse_gfa(assembly_path)
+    # sanitize to ACGT (reference check_input_assembly, hairsplitter.py:295-323)
+    n_fixed = 0
+    for name, seq in list(assembly.segments.items()):
+        up = seq.upper()
+        if any(c not in "ACGT" for c in up):
+            fixed = "".join(c if c in "ACGT" else "A" for c in up)
+            n_fixed += sum(1 for a, b in zip(up, fixed) if a != b)
+            assembly.segments[name] = fixed
+        elif up is not seq and up != seq:
+            assembly.segments[name] = up
+    if n_fixed:
+        log.log(f"  sanitized {n_fixed} non-ACGT assembly bases to 'A'")
+    # user GFAs may carry overlapping links: blunt them before anything else
+    # (reference bluntify.py:16, invoked at scaffold.cpp:2121-2130)
+    trimmed = bluntify_graph(assembly)
+    if trimmed:
+        log.log(f"  bluntified {trimmed} bases of link overlaps")
+    assembly = cut_assembly(assembly, cfg.max_contig_chunk)
+    log.log(f"  {len(assembly.segments)} contigs after chunking at {cfg.max_contig_chunk}")
+
+    if cfg.min_read_quality > 0 and reads_path.rstrip(".gz").endswith((".fastq", ".fq")):
+        filtered = os.path.join(tmp_dir, "filtered_reads.fastq")
+        kept = filter_fastq_by_quality(reads_path, filtered, cfg.min_read_quality)
+        log.log(f"STAGE 0.2 quality filter: kept {kept} reads (>= Q{cfg.min_read_quality})")
+        reads_path = filtered
+
+    log.log(f"STAGE 2 loading + mapping reads {reads_path}")
+    store = ReadStore(reads_path)
+    total_read_bp = int(np.sum(store.lengths)) if store.lengths is not None else 0
+    asm_bp = sum(len(s) for s in assembly.segments.values())
+    est_coverage = total_read_bp / max(1, asm_bp)
+    low_memory = cfg.low_memory or est_coverage > 1000
+    if low_memory and not cfg.low_memory:
+        log.log(f"  estimated coverage {est_coverage:.0f}x > 1000: low-memory mode auto-on")
+    if low_memory:
+        read_seqs = LazyReadSeqs(store)
+    else:
+        read_seqs = {i: store.get_seq(i) for i in range(len(store))}
+    amplicon = cfg.technology == "amplicon"
+
+    sam_path = os.path.join(tmp_dir, "reads_on_asm.sam")
+    if resume and os.path.exists(sam_path):
+        alns = parse_sam(sam_path, {store.names[i]: i for i in range(len(store))}, max_clip_frac=1.0)
+        log.log(f"  resume: {len(alns)} alignments loaded from {sam_path}")
+    else:
+        resume = False
+        t0 = time.time()
+        if low_memory:
+            # stream reads in batches so only one batch is ever resident
+            index = MinimizerIndex.build(
+                {n: encode_seq(s) for n, s in assembly.segments.items()},
+                k=cfg.map.k,
+                w=cfg.map.w,
+                max_occ=cfg.map.max_occ,
+            )
+            alns = []
+            bs = cfg.low_memory_read_batch
+            for lo in range(0, len(store), bs):
+                idxs = list(range(lo, min(lo + bs, len(store))))
+                batch = [store.get_seq(i) for i in idxs]
+                store.free(idxs)
+                alns.extend(
+                    map_reads(
+                        assembly.segments, batch, cfg.map, read_indices=idxs, index=index,
+                        device=device,
+                    )
+                )
+        else:
+            alns = map_reads(
+                assembly.segments, [read_seqs[i] for i in range(len(store))], cfg.map,
+                device=device,
+            )
+        stats.record("mapping", time.time() - t0, read_kbp=total_read_bp / 1e3)
+        write_sam(
+            sam_path,
+            alns,
+            {n: len(s) for n, s in assembly.segments.items()},
+            {i: store.names[i] for i in range(len(store))},
+            read_seqs,
+        )
+    log.log(f"  {len(alns)} alignments for {len(store)} reads")
+
+    per_contig_alns: dict[str, list] = {c: [] for c in assembly.segments}
+    for a in alns:
+        per_contig_alns[a.contig].append(a)
+    # deterministic per-contig row order regardless of process count / SAM
+    # round-trips (pileup rows, window labels and GRO lines depend on it)
+    for c in per_contig_alns:
+        per_contig_alns[c].sort(key=lambda a: (a.read_idx, a.t_start, a.q_start))
+    read_names = {i: store.names[i] for i in range(len(store))}
+
+    # ---- stage 3: variant calling (two-pass for the pooled error rate) ------
+    vcfg = cfg.variants
+    vcfg.auto_frac = cfg.auto_frac
+    col_path = os.path.join(tmp_dir, "variants.col")
+    err_path = os.path.join(tmp_dir, "error_rate.txt")
+    variants: dict[str, ContigVariants] | None = None
+    if resume and os.path.exists(col_path) and os.path.exists(err_path):
+        error_rate = float(open(err_path).read().strip())
+        variants = read_col(col_path)
+        for cv in variants.values():
+            cv.error_rate = error_rate
+        ok = set(variants) == set(assembly.segments)
+        if ok:
+            log.log(f"  resume: variants loaded from {col_path} (err {error_rate:.4f})")
+        else:
+            variants = None
+            resume = False
+    else:
+        resume = False
+    if variants is None:
+        log.log("STAGE 3 calling variants")
+        t0 = time.time()
+        # host pileup tensorization per contig (threaded), then ONE batched
+        # device pass over every contig's window blocks (finish_preps);
+        # distributed: each process handles its contig shard
+        pending = [
+            pp
+            for _, pp in _contig_map(
+                cfg.threads,
+                list(assembly.segments.items()),
+                lambda item: (
+                    item[0],
+                    prepare_contig_host(
+                        item[0], item[1], per_contig_alns[item[0]], read_seqs, vcfg
+                    ),
+                ),
+            )
+        ]
+        preps = finish_preps(pending, vcfg, device=device)
+        total_mm = sum(p.mismatches for p in preps.values())
+        total_cells = sum(p.cells for p in preps.values())
+        error_rate = min(total_mm / max(1, total_cells), vcfg.error_cap)
+        with open(err_path, "w") as f:
+            f.write(f"{error_rate}\n")
+        log.log(f"  pooled error rate {error_rate:.4f}")
+
+        variants = {}
+        n_snps = 0
+        for contig in preps:
+            variants[contig] = call_variants_from_prep(
+                preps[contig], error_rate, vcfg, device=device
+            )
+            n_snps += len(variants[contig].columns)
+        stats.record(
+            "call_variants", time.time() - t0, pileup_cells=total_cells, snps=n_snps
+        )
+        log.log(f"  {n_snps} robust variant positions")
+        write_col(col_path, variants, per_contig_alns, read_names)
+        _write_vcf(os.path.join(out_dir, "variants.vcf"), variants)
+
+    # ---- stage 4: separate reads -------------------------------------------
+    scfg = cfg.separate
+    scfg.amplicon = amplicon
+    scfg.rarest_strain_abundance = cfg.rarest_strain_abundance
+    gro_path = os.path.join(tmp_dir, "reads_haplo.gro")
+    groups: dict[str, ContigGroups] | None = None
+    ploidy: dict[str, int] = {}
+    if resume and os.path.exists(gro_path):
+        groups = read_gro(gro_path)
+        if set(groups) == set(assembly.segments):
+            log.log(f"  resume: read groups loaded from {gro_path}")
+        else:
+            groups = None
+            resume = False
+    else:
+        resume = False
+    if groups is None:
+        log.log("STAGE 4 separating reads")
+        t0 = time.time()
+        if cfg.haploid_coverage > 0:
+            for contig, cv in variants.items():
+                assembly.depths.setdefault(contig, cv.depth)
+            ploidy = determine_multiplicity(assembly, cfg.haploid_coverage)
+            # the GraphUnzip function yields a topology-driven MINIMUM
+            # multiplicity (`determine_multiplicity.py:157`), which reports 1
+            # for e.g. an isolated diploid contig; the stage-4 haplotype cap
+            # must also honor the contig's own depth. round(d/hc) = m always
+            # satisfies the reference's depth guard (d/hc > m/1.5 for m>=2),
+            # so the floor never reintroduces junction over-estimates.
+            for contig in ploidy:
+                d = assembly.depths.get(contig, 0.0)
+                if d > 0:
+                    ploidy[contig] = max(
+                        ploidy[contig], round(d / cfg.haploid_coverage)
+                    )
+            write_ploidy(os.path.join(tmp_dir, "ploidy.txt"), ploidy)
+
+        def _sep(contig):
+            spans = [(a.t_start, a.t_end) for a in per_contig_alns[contig]]
+            mh = ploidy.get(contig, 0)
+            return contig, separate_reads_for_contig(
+                variants[contig], spans, scfg, max_haplotypes=mh, device=device
+            )
+
+        groups = dict(
+            _contig_map(cfg.threads, list(assembly.segments), _sep)
+        )
+        stats.record("separate_reads", time.time() - t0, reads_phased=len(alns))
+        n_sep = sum(
+            1
+            for g in groups.values()
+            for w in g.windows
+            if len(set(w.labels[w.labels >= 0].tolist())) > 1
+        )
+        log.log(f"  {n_sep} windows with >1 haplotype")
+        write_gro(gro_path, groups, per_contig_alns, read_names)
+
+    # ---- stage 5: create new contigs ---------------------------------------
+    log.log("STAGE 5 creating new contigs")
+    t0 = time.time()
+    zip_in = {c: (per_contig_alns[c], groups[c]) for c in assembly.segments}
+    # racon-style extra polish rounds pay off only on very noisy reads: the
+    # single-pass consensus is exact at <=10% read error. Above that, run
+    # the reference's own ladder — vote consensus then racon (tools.cpp:
+    # 317-557) — with the native POA standing in for racon (ops/poa.py);
+    # measured on 24%-error reads the vote plateaus at ~95% identity while
+    # vote+POA reaches ~99.5%
+    polish_rounds = 2 if error_rate > 0.08 else 0
+    polish_mode = "vote"
+    if polish_rounds:
+        if poa_available():
+            # the reference ladder runs ONE racon pass after the vote
+            # consensus (tools.cpp:317-557); one POA round converges the
+            # same way (round 2 is a no-op on vote-initialised drafts).
+            # -p medaka no longer disables the ladder: the NN pass runs
+            # AFTER the POA (new_contigs.py), so the flag can only add
+            # accuracy (VERDICT r3 weak #3)
+            polish_mode = "poa"
+            polish_rounds = 1
+    if polish_rounds:
+        log.log(
+            f"  noisy reads ({error_rate:.3f}): {polish_rounds} extra polish rounds ({polish_mode})"
+        )
+    zr = create_new_contigs(
+        assembly,
+        zip_in,
+        read_seqs,
+        cfg.polish_everything,
+        polish_rounds=polish_rounds,
+        polish_mode=polish_mode,
+        device=device,
+    )
+    new_bp = sum(len(s) for s in zr.graph.segments.values())
+    stats.record("create_new_contigs", time.time() - t0, polished_kbp=new_bp / 1e3)
+    write_gfa(zr.graph, os.path.join(tmp_dir, "zipped_assembly.gfa"))
+    write_gaf(
+        os.path.join(tmp_dir, "reads_on_new_contig.gaf"),
+        read_names,
+        zr.graph,
+        {i: int(store.lengths[i]) for i in range(len(store))},
+        zr.read_path_parts,
+    )
+    log.log(f"  {len(zr.graph.segments)} new contigs")
+
+    # ---- stage 6: untangle --------------------------------------------------
+    # `-s` does NOT skip untangling: the reference still runs GraphUnzip and
+    # only passes --dont_merge (`hairsplitter.py:806-816`), so haplotype
+    # copies are made but unbranched chains stay separate contigs
+    log.log("STAGE 6 untangling with read paths" + (" (no chain merge: -s)" if cfg.dont_simplify else ""))
+    t0 = time.time()
+    # read_seqs enables the repolish of duplicated copies — the reference
+    # always passes -r to GraphUnzip (`hairsplitter.py:815`), so copies are
+    # rebuilt from their own path's reads (restores haplotype content in
+    # windows where phasing had collapsed groups)
+    ur = unzip(
+        zr.graph, zr.read_paths, merge=not cfg.dont_simplify, read_seqs=read_seqs, device=device
+    )
+    final_graph = ur.graph
+    supercontigs = ur.supercontigs
+    stats.record("untangle", time.time() - t0, contigs=len(final_graph.segments))
+    log.log(f"  {len(final_graph.segments)} contigs after untangling")
+
+    # export ordering parity (`input_output.py:379-383` via `graphunzip.py:
+    # 468-472`): longest first, most-covered first for amplicon (-x)
+    sort_key = (
+        (lambda n: final_graph.depths.get(n, 0.0))
+        if amplicon
+        else (lambda n: len(final_graph.segments[n]))
+    )
+    final_graph.segments = {
+        n: final_graph.segments[n]
+        for n in sorted(final_graph.segments, key=sort_key, reverse=True)
+    }
+    write_gfa(final_graph, final_gfa)
+    write_fasta(final_fasta, gfa_to_fasta(final_graph))
+    with open(os.path.join(out_dir, "hairsplitter_summary.txt"), "w") as f:
+        for line in zr.summary:
+            f.write(line + "\n")
+        f.write("\n# supercontig composition\n")
+        for name, comp in supercontigs.items():
+            f.write(
+                name + "\t" + ",".join(f"{n}{'+' if o==1 else '-'}" for n, o in comp) + "\n"
+            )
+    if not (cfg.no_clean or cfg.debug):
+        # keep the resume/interop artifacts, drop the rest
+        keep = {
+            "error_rate.txt",
+            "zipped_assembly.gfa",
+            "reads_on_new_contig.gaf",
+            "variants.col",
+            "reads_haplo.gro",
+            "reads_on_asm.sam",
+            "run_fingerprint.txt",
+            "ploidy.txt",
+            "corrected_assembly.gfa",  # stage-1b resume artifact
+        }
+        for fn in os.listdir(tmp_dir):
+            if fn not in keep:
+                try:
+                    os.remove(os.path.join(tmp_dir, fn))
+                except OSError:
+                    pass
+    log.log(f"done: {final_gfa}")
+    return final_gfa
+
+
+def _contig_map(threads: int, items, fn):
+    """Map over contigs, optionally with host threads (the reference runs an
+    OpenMP `parallel for` over contigs, `call_variants.cpp:1276-1280`).
+    numpy and torch release the GIL for the heavy parts."""
+    items = list(items)
+    if threads <= 1 or len(items) <= 1:
+        return [fn(it) for it in items]
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        return list(ex.map(fn, items))
+
+
+def _write_vcf(path: str, variants: dict[str, ContigVariants]) -> None:
+    """Copy of `hairsplitter_tpu/pipeline/orchestrate.py:_write_vcf`."""
+    alphabet = "ACGT-"
+    with open(path, "w") as f:
+        f.write("##fileformat=VCFv4.2\n#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\n")
+        for contig, cv in variants.items():
+            for c in cv.columns:
+                ref = alphabet[c.top1 // 25]
+                alt = alphabet[c.top2 // 25]
+                f.write(f"{contig}\t{c.pos}\t.\t{ref}\t{alt}\t.\t.\tDP={c.rows.size}\n")

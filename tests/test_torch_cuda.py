@@ -1,0 +1,74 @@
+"""On-card checks of the PyTorch port: the CUDA kernel against its plain
+PyTorch version, and the fused call and `map_reads` on the GPU against the
+same functions on the CPU. Every test is marked `cuda` and skips without a
+GPU (the kernel has no CPU mode).
+
+This file imports nothing of JAX, so it also runs on a machine without JAX:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from chip_smoke import random_jobs
+from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads
+from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
+from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+from hairsplitter_tpu_torch.ops.align import BandSpec
+from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows
+
+pytestmark = pytest.mark.cuda
+
+SPEC = BandSpec(chunk=256, band=128)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the Myers kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _jobs(seed: int, n: int):
+    """`chip_smoke.py`'s seeded jobs: noisy target copies of random queries,
+    plus empty, full-length, short-target, unrelated and all-sentinel rows."""
+    return random_jobs(np.random.default_rng(seed), n, SPEC)
+
+
+@pytest.mark.parametrize("n", [1, 33, 4096])
+def test_kernel_equals_plain_version(cuda, n):
+    q, _, t, _ = _jobs(n, n)
+    qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    before = am.myers_rows.launches
+    got = am.myers_rows(qd, td, SPEC, emit_tb=True)
+    ref = am.myers_rows_torch(qd, td, SPEC, emit_tb=True)
+    assert am.myers_rows.launches == before + 1
+    for g, r in zip(got, ref):
+        assert g.shape == (n, SPEC.chunk, 4)
+        assert torch.equal(g, r)
+    pm = am.myers_rows(qd, td, SPEC, emit_tb=False)
+    assert len(pm) == 2 and torch.equal(pm[0], got[0]) and torch.equal(pm[1], got[1])
+
+
+def test_fused_call_on_card_equals_cpu(cuda):
+    arrays = _jobs(7, 2048)
+    modes = (np.arange(2048) % 2).astype(np.int32)
+    host = [torch.from_numpy(x) for x in (*arrays, modes)]
+    order = (0, 1, 2, 3, 4)  # q, qlens, t, tlens, modes
+    cpu = align_traceback_rows(*(host[i] for i in order), SPEC)
+    gpu = align_traceback_rows(*(host[i].to(cuda) for i in order), SPEC)
+    assert torch.equal(gpu.cpu(), cpu)
+
+
+def test_map_reads_on_card_equals_cpu(cuda):
+    rng = np.random.default_rng(3)
+    haps = make_haplotypes(12_000, 2, 0.01, rng)
+    reads = simulate_reads(haps, coverage=8, read_len=3000, rng=rng,
+                           sub_rate=0.06, ins_rate=0.02, del_rate=0.02).seqs
+    key = lambda a: (a.read_idx, a.strand, a.q_start, a.q_end, a.t_start, a.t_end,  # noqa: E731
+                     a.cigar_ops.tolist(), a.cigar_lens.tolist(), a.nm)
+    cpu = [key(a) for a in map_reads({"c": haps[0]}, reads, MapConfig(), device="cpu")]
+    gpu = [key(a) for a in map_reads({"c": haps[0]}, reads, MapConfig(), device=cuda)]
+    assert len(cpu) > 0 and gpu == cpu
