@@ -9,16 +9,27 @@ Phases (each prints its result; any failure raises and exits non-zero):
   1. environment: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from `hairsplitter_tpu_torch/csrc/`
-     with nvcc for sm_90a, and the native host library with g++;
-  3. kernel vs plain version: the Myers kernel's four word streams must equal
-     `myers_rows_torch` bit for bit on 8,192 seeded random jobs at the main
-     path's shape (B = 256, W = 128, edge cases included); both are timed
-     with CUDA events, and the fused mapping call's parts are timed at
-     32,768 jobs;
-  4. main path: builds the 300 kb x 3-strain, 30x, 10%-error dataset
-     (seed 7) and runs the port's CLI on cuda; the kernel's launch counter
-     must be > 0, the final GFA must exist and every strain's recovery must
-     be >= 0.95;
+     with nvcc for sm_90a (one nvcc per source, in parallel), and the native
+     host library with g++;
+  3. kernels vs plain versions, on 8,192 seeded random jobs at the main
+     path's shape (B = 256, W = 128, edge cases included): K1, the Myers
+     kernel, must equal `myers_rows_torch` in its four word streams, and K2,
+     the int32 banded-DP kernel, must equal `banded_align_batch_torch` in
+     all four outputs in both modes (uint8 bp, int16 enc), bit for bit; all
+     are timed with CUDA events. At 32,768 jobs the fused mapping call with
+     K2 (kernel="pallas") must equal the call with K1 byte for byte, and
+     both calls' parts are timed;
+  4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
+     (seed 7) and runs the port's CLI on cuda; K1's launch counter must be
+     > 0, the final GFA must exist and every strain's recovery must be
+     >= 0.95;
+  5. main path, K2: the same dataset through `run_pipeline` with
+     `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; K2's launch
+     counter must be > 0 and K1's must not move during stage 2, the mapping
+     that `PipelineConfig.map` configures (the stage-5 and stage-6 remaps
+     map with the default MapConfig, K1, in the JAX package too); the SAM
+     and the final GFA must be byte-identical to phase 4's and every
+     strain's recovery must be >= 0.95;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -132,8 +143,9 @@ def main() -> int:
     from hairsplitter_tpu import native
     from hairsplitter_tpu_torch.ops import _build
     from hairsplitter_tpu_torch.ops.align import BandSpec
+    from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
-    from hairsplitter_tpu_torch.ops.align_device import readout_device
+    from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, readout_device, traceback_scan
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -149,12 +161,13 @@ def main() -> int:
     print(f"[build] native host library (g++, built now: {native_built}): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    # ---- 3. kernel vs plain version
+    # ---- 3. kernels vs plain versions
     dev = torch.device("cuda")
     spec = BandSpec(chunk=B, band=128)
     rng = np.random.default_rng(0)
     q, qlens, t, tlens = random_jobs(rng, N_CHECK, spec)
     qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
+    qld, tld = torch.from_numpy(qlens).to(dev), torch.from_numpy(tlens).to(dev)
     got = am.myers_rows(qd, td, spec, emit_tb=True)
     ref = am.myers_rows_torch(qd, td, spec, emit_tb=True)
     torch.cuda.synchronize()
@@ -169,6 +182,27 @@ def main() -> int:
     print(f"[kernel] myers_rows == myers_rows_torch on {N_CHECK} jobs x B={B} (4 streams, bit for bit); "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms", flush=True)
 
+    k2_err = 0
+    k2_ms, k2_plain_ms = {}, {}
+    for emit_enc in (False, True):
+        got = ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=emit_enc)
+        ref = ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=emit_enc)
+        torch.cuda.synchronize()
+        assert got.keys() == ref.keys()
+        for key in ref:
+            a, b = got[key], ref[key]
+            assert a.dtype == b.dtype and a.shape == b.shape, f"K2 {key}: {a.dtype}{tuple(a.shape)}"
+            k2_err = max(k2_err, int((a.to(torch.int64) - b.to(torch.int64)).abs().max()))
+            assert torch.equal(a, b), f"K2 output {key} (emit_enc={emit_enc}) differs from the plain version"
+        mode = "enc" if emit_enc else "bp"
+        k2_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=emit_enc), 20)
+        k2_plain_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=emit_enc), 3)
+        del got, ref
+    print(f"[kernel K2] banded_align_batch_dp == banded_align_batch_torch on {N_CHECK} jobs x B={B} "
+          f"(bp, enc, row_at_q, colmin_val, colmin_i; bit for bit); "
+          + ", ".join(f"{m}: kernel {k2_ms[m]:.4f} ms, plain {k2_plain_ms[m]:.2f} ms" for m in k2_ms),
+          flush=True)
+
     # the fused mapping call's parts at ~stage-2 size
     q, qlens, t, tlens = random_jobs(np.random.default_rng(1), N_FUSED, spec)
     qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
@@ -182,13 +216,55 @@ def main() -> int:
         "traceback_scan_words": cuda_ms(lambda: am.traceback_scan_words(nl, up, si, sb), 3),
     }
     parts["word_readout"] -= parts["kernel"]
-    print("[fused] parts at %d jobs: %s" % (
+    del res, nl, up
+    fused_k1 = align_traceback_rows(qd, qld, td, tld, modes, spec, "myers")
+    fused_k2 = align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas")
+    assert torch.equal(fused_k2, fused_k1), "the fused buffer with K2 differs from the buffer with K1"
+    del fused_k1, fused_k2
+    parts["fused_call"] = cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "myers"), 3)
+    print("[fused] K2 buffer == K1 buffer on %d jobs (byte for byte)" % N_FUSED, flush=True)
+    print("[fused] K1 parts at %d jobs: %s" % (
         N_FUSED, ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())), flush=True)
+    res = ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True)
+    cost, si, sb, clip = readout_device(res, qld, tld, modes, spec)
+    k2_parts = {
+        "kernel": cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True), 10),
+        "readout": cuda_ms(lambda: readout_device(res, qld, tld, modes, spec), 5),
+        "traceback_scan": cuda_ms(lambda: traceback_scan(res["enc"], si, sb), 3),
+        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 3),
+        "plain_dp": cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=True), 2),
+    }
+    enc_bytes = res["enc"].numel() * res["enc"].element_size()
+    print("[fused] K2 parts at %d jobs: %s; enc plane %.3f GB, %.3f TB/s (%.1f%% of 3.35 TB/s)" % (
+        N_FUSED, ", ".join(f"{k} {v:.3f} ms" for k, v in k2_parts.items()),
+        enc_bytes / 1e9, enc_bytes / k2_parts["kernel"] / 1e9,
+        100 * enc_bytes / k2_parts["kernel"] / 1e9 / 3.35), flush=True)
+    del res, cost, si, sb, clip
 
     # ---- 4. main path through the CLI
     from hairsplitter_tpu.io.gfa import parse_gfa
     from hairsplitter_tpu.utils.evaluate import evaluate_phasing
     from hairsplitter_tpu_torch import cli
+    from hairsplitter_tpu_torch.core.mapping import MapConfig
+    from hairsplitter_tpu_torch.pipeline import orchestrate
+
+    def check_run(out, wall, label):
+        """Final GFA present, strain recovery >= MIN_RECOVERY; prints the
+        stage table. Returns the recovery list."""
+        final = os.path.join(out, "hairsplitter_final_assembly.gfa")
+        assert os.path.exists(final), f"{label}: no final GFA"
+        g = parse_gfa(final)
+        assert g.segments and all(len(s) > 0 for s in g.segments.values())
+        ev = evaluate_phasing(g.segments, haps)
+        recovery = [float(r) for r in ev.haplotype_recovery]
+        stats = json.load(open(os.path.join(out, "stage_stats.json")))
+        print(f"[{label}] {wall:.1f} s wall, {len(g.segments)} contigs, "
+              f"recovery {recovery}, switch errors {ev.total_switch_errors}", flush=True)
+        for stage, entry in stats.items():
+            extra = ", ".join(f"{k}={v}" for k, v in entry.items() if k != "seconds")
+            print(f"[{label}]   {stage:20s} {entry['seconds']:8.3f} s  {extra}")
+        assert min(recovery) >= MIN_RECOVERY, f"{label}: strain recovery {recovery} < {MIN_RECOVERY}"
+        return recovery
 
     with tempfile.TemporaryDirectory(prefix="hs_smoke_") as root:
         t0 = time.perf_counter()
@@ -199,6 +275,7 @@ def main() -> int:
 
         out = os.path.join(root, "out")
         am.myers_rows.launches = 0
+        ad.banded_align_batch_dp.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
@@ -207,20 +284,50 @@ def main() -> int:
         launches = am.myers_rows.launches
         assert rc == 0, f"CLI returned {rc}"
         assert launches > 0, "the main path never launched the Myers kernel"
-        final = os.path.join(out, "hairsplitter_final_assembly.gfa")
-        assert os.path.exists(final), "no final GFA"
-        g = parse_gfa(final)
-        assert g.segments and all(len(s) > 0 for s in g.segments.values())
-        ev = evaluate_phasing(g.segments, haps)
-        recovery = [float(r) for r in ev.haplotype_recovery]
-        stats = json.load(open(os.path.join(out, "stage_stats.json")))
-        print(f"[main] CLI on cuda: {wall:.1f} s wall, {len(g.segments)} contigs, "
-              f"Myers launches {launches}, recovery {recovery}, "
-              f"switch errors {ev.total_switch_errors}", flush=True)
-        for stage, entry in stats.items():
-            extra = ", ".join(f"{k}={v}" for k, v in entry.items() if k != "seconds")
-            print(f"[main]   {stage:20s} {entry['seconds']:8.3f} s  {extra}")
-        assert min(recovery) >= MIN_RECOVERY, f"strain recovery {recovery} < {MIN_RECOVERY}"
+        print(f"[main] CLI on cuda: K1 launches {launches}, K2 launches "
+              f"{ad.banded_align_batch_dp.launches}", flush=True)
+        check_run(out, wall, "main")
+
+        # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
+        out_k2 = os.path.join(root, "out_k2")
+        stage2 = {"k1": 0, "k2": 0}
+        stage2_map_reads = orchestrate.map_reads
+
+        def counted_map_reads(*args, **kwargs):
+            k1, k2 = am.myers_rows.launches, ad.banded_align_batch_dp.launches
+            alns = stage2_map_reads(*args, **kwargs)
+            stage2["k1"] += am.myers_rows.launches - k1
+            stage2["k2"] += ad.banded_align_batch_dp.launches - k2
+            return alns
+
+        orchestrate.map_reads = counted_map_reads  # the stage-2 call site
+        try:
+            am.myers_rows.launches = 0
+            ad.banded_align_batch_dp.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orchestrate.run_pipeline(
+                asm_path, reads_path, out_k2,
+                orchestrate.PipelineConfig(map=MapConfig(use_myers=False)),
+            )
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            orchestrate.map_reads = stage2_map_reads
+        k2_launches = ad.banded_align_batch_dp.launches
+        k1_later = am.myers_rows.launches
+        print(f"[main K2] run_pipeline(map=MapConfig(use_myers=False)) on cuda: K2 launches "
+              f"{k2_launches} (stage 2: {stage2['k2']}), K1 launches in stage 2 {stage2['k1']}, "
+              f"K1 launches of the stage-5/6 remaps (default MapConfig) {k1_later - stage2['k1']}",
+              flush=True)
+        assert k2_launches > 0 and stage2["k2"] > 0, "the use_myers=False path never launched K2"
+        assert stage2["k1"] == 0, "K1 launched during the use_myers=False stage-2 mapping"
+        for name in ("tmp/reads_on_asm.sam", "hairsplitter_final_assembly.gfa"):
+            with open(os.path.join(out, name), "rb") as f1, open(os.path.join(out_k2, name), "rb") as f2:
+                assert f1.read() == f2.read(), f"{name} of the K2 run differs from the K1 run's"
+        print("[main K2] tmp/reads_on_asm.sam and hairsplitter_final_assembly.gfa byte-identical "
+              "to the K1 run's", flush=True)
+        check_run(out_k2, wall, "main K2")
 
     print(json.dumps({"kernels": [{
         "name": "myers_rows",
@@ -231,6 +338,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "banded_dp",
+        "route": "cuda",
+        "source": "hairsplitter_tpu_torch/csrc/banded_dp.cu",
+        "replaces": "hairsplitter_tpu/ops/align_pallas.py:50",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2_ms["enc"],
+        "plain_ms": k2_plain_ms["enc"],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

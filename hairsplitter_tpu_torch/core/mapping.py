@@ -3,9 +3,11 @@
 Counterpart of `hairsplitter_tpu/core/mapping.py`. Host seeding and chaining
 (`hairsplitter_tpu.core.seeding`, native C++) are reused; the chunk jobs
 between pins go through ONE fused mapping call per `map_reads` (up to a
-memory cap of `MAX_JOBS_PER_LAUNCH` jobs): the Myers CUDA kernel, word
-readout and row-lockstep traceback (`ops/align_device.py`), decoded on
-host. The TPU path's fixed 2048-row buckets, K-tier scan and nibble-packed
+memory cap of `MAX_JOBS_PER_LAUNCH` jobs): a DP kernel, readout and
+row-lockstep traceback (`ops/align_device.py`), decoded on host. The DP is
+chosen as the JAX package's accelerator path chooses it (`dp_kernel`): the
+Myers kernel at band 128, else the int32 banded-DP kernel, else the plain
+DP. The TPU path's fixed 2048-row buckets, K-tier scan and nibble-packed
 uploads are not carried over.
 """
 
@@ -26,17 +28,18 @@ from hairsplitter_tpu.io.cigar import compress_cigar
 from ..ops.align import Q_SENTINEL, T_SENTINEL, BandSpec
 from ..ops.align_device import align_traceback_rows, expand_rows_host
 
-# jobs per fused call: ~4.3 GB of device temporaries at B = 256 (the four
-# word streams are 64 B per row and job)
+# jobs per fused call: ~4.3 GB of device temporaries at B = 256 (the Myers
+# word streams are 64 B per row and job, the int32 DP's enc plane 256 B)
 MAX_JOBS_PER_LAUNCH = 1 << 16
 
 
 @dataclass(frozen=True)
 class MapConfig:
     """The JAX package's `MapConfig` fields that select behaviour in the
-    port, with the same defaults. Its DP-branch switches (`batch`,
-    `use_pallas`, `use_myers`, `device_traceback`, `use_native_cpu`) are
-    absent: the port always runs the fused Myers call."""
+    port, with the same names and defaults. `use_myers` and `use_pallas`
+    pick the fused call's DP kernel (`dp_kernel`). The TPU-era switches
+    `batch`, `device_traceback` and `use_native_cpu` are absent: the port
+    always runs one fused device call per `map_reads`."""
 
     k: int = 15
     w: int = 10
@@ -45,6 +48,11 @@ class MapConfig:
     max_occ: int = 64
     # minimum identity to keep an alignment (minimap2 -M-ish sanity filter)
     max_divergence: float = 0.35
+    # the int32 banded-DP kernel (csrc/banded_dp.cu), when the Myers kernel
+    # is off or the band is not its 128; False runs the plain DP (any band)
+    use_pallas: bool = True
+    # the Myers bit-vector kernel (csrc/myers_rows.cu), the default DP at band 128
+    use_myers: bool = True
     # reads with no accepted alignment get a second pass with shorter, denser
     # minimizers
     rescue: bool = True
@@ -131,22 +139,37 @@ def _pack_jobs(jobs: list[_Job], B: int, T: int):
     return qb, tb, qlens, tlens, modes
 
 
+def dp_kernel(cfg: MapConfig) -> str:
+    """The fused call's DP for `cfg`, as the JAX package's accelerator path
+    picks it (`core/mapping.py:314-332`): "myers" (K1) when `use_myers` and
+    the band is 128, else "pallas" (K2, the int32 banded-DP kernel) when
+    `use_pallas`, else "jnp" (the plain DP in torch ops, any band)."""
+    band = cfg.spec.band
+    if cfg.use_myers and band == 128:
+        return "myers"
+    if not cfg.use_pallas:
+        return "jnp"
+    if band != 128:
+        raise ValueError(
+            f"MapConfig(use_pallas=True) runs the int32 banded-DP kernel K2 (csrc/banded_dp.cu), "
+            f"which is specialised to band 128 like the JAX package's Pallas kernel; for band "
+            f"{band} set MapConfig(use_pallas=False) to run the plain DP"
+        )
+    return "pallas"
+
+
 def run_jobs(jobs: list[_Job], cfg: MapConfig, device) -> list[dict]:
     """Align all jobs with the fused call on `device`; per-job expanded ops,
     cost and trailing-query soft clip."""
     spec = cfg.spec
-    if spec.band != 128:
-        raise NotImplementedError(
-            "only the Myers band-128 mapping DP is ported; the int32 banded-DP "
-            "kernel for other bands (K2, ops/align_pallas.py:_dp_kernel) is ROADMAP.md Queue 2"
-        )
+    kernel = dp_kernel(cfg)
     B, T = spec.chunk, spec.t_width
     results: list[dict] = [None] * len(jobs)
     for lo in range(0, len(jobs), MAX_JOBS_PER_LAUNCH):
         sub = jobs[lo : lo + MAX_JOBS_PER_LAUNCH]
         qb, tb, qlens, tlens, modes = _pack_jobs(sub, B, T)
         dev = [torch.from_numpy(x).to(device) for x in (qb, qlens, tb, tlens, modes)]
-        fused = align_traceback_rows(*dev, spec).cpu().numpy()
+        fused = align_traceback_rows(*dev, spec, kernel).cpu().numpy()
         ops_list, cost, clip = expand_rows_host(fused, qb, tb, spec)
         for i, job in enumerate(sub):
             ops = ops_list[i]

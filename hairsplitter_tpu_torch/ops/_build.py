@@ -1,10 +1,12 @@
 """Build and load the package's CUDA kernels at first use.
 
-`csrc/*.cu` hold kernels with a plain C interface; they are compiled with
-nvcc for Hopper (`sm_90a`) into `hairsplitter_tpu_torch/build/` (git-ignored)
-and loaded with ctypes. No PyTorch headers are compiled, so a build takes
-seconds. The library name carries a hash of the sources, so an edited
-kernel is never served from a stale build.
+`csrc/*.cu` hold kernels with a plain C interface. Each source is compiled
+with nvcc for Hopper (`sm_90a`) by its own process, all started together,
+and the objects are linked into one shared library in
+`hairsplitter_tpu_torch/build/` (git-ignored), loaded with ctypes. No
+PyTorch headers are compiled, so a build takes seconds. The library name
+carries a hash of the sources, so an edited kernel is never served from a
+stale build.
 """
 
 from __future__ import annotations
@@ -20,10 +22,10 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("myers_rows.cu",)
+SOURCES = ("myers_rows.cu", "banded_dp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -59,16 +61,26 @@ def build(force: bool = False) -> str:
             build_info.update(path=so, seconds=0.0, cached=True)
         return so
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(CSRC_DIR, s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, f"{os.path.splitext(s)[0]}.o") for s in SOURCES]
+        procs = [
+            subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, os.path.join(CSRC_DIR, src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for src, obj in zip(SOURCES, objs)
+        ]
+        reports = [proc.communicate()[1].strip() for proc in procs]  # waits for every compile
+        for src, proc, err in zip(SOURCES, procs, reports):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{err}")
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads a partial file
     build_info.update(
-        path=so, seconds=time.perf_counter() - t0, cached=False, ptxas=proc.stderr.strip()
+        path=so, seconds=time.perf_counter() - t0, cached=False, ptxas="\n".join(reports)
     )
     return so
 
@@ -89,6 +101,22 @@ def load_kernels() -> ctypes.CDLL:
             ctypes.c_void_p,  # M words
             ctypes.c_void_p,  # nonleft words (or null)
             ctypes.c_void_p,  # isup words (or null)
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.hs_banded_dp.restype = ctypes.c_int
+        lib.hs_banded_dp.argtypes = [
+            ctypes.c_void_p,  # q int8 [N, B]
+            ctypes.c_void_p,  # t int8 [N, T]
+            ctypes.c_void_p,  # q_lens int32 [N]
+            ctypes.c_void_p,  # t_lens int32 [N]
+            ctypes.c_int,  # N
+            ctypes.c_int,  # B
+            ctypes.c_int,  # T
+            ctypes.c_int,  # emit_enc
+            ctypes.c_void_p,  # plane: uint8 bp or int16 enc [N, B, W]
+            ctypes.c_void_p,  # row_at_q int32 [N, W]
+            ctypes.c_void_p,  # colmin_val int32 [N]
+            ctypes.c_void_p,  # colmin_i int32 [N]
             ctypes.c_void_p,  # cudaStream_t
         ]
         _lib = lib

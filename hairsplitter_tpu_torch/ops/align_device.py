@@ -2,10 +2,11 @@
 traceback in one device pass, decoded on host.
 
 Counterpart of `hairsplitter_tpu/ops/align_device.py`: `readout_device`
-(:36-65), the Myers branch of `_align_traceback_rows_impl` (:286-320) and a
-copy of the host decoder `expand_rows_host` (:323-379). A chunk alignment
-ships home as 16 + B bytes: int32 cost, clip, start_i and start_b, then one
-token per query row, `d | up << 7`.
+(:36-65), `traceback_rows_device`, `encode_runs` and `traceback_scan`
+(:116-188), the three kernel branches of `_align_traceback_rows_impl`
+(:286-320) and a copy of the host decoder `expand_rows_host` (:323-379). A
+chunk alignment ships home as 16 + B bytes: int32 cost, clip, start_i and
+start_b, then one token per query row, `d | up << 7`.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ import torch
 
 from hairsplitter_tpu import native as _native
 
-from .align import INF, TB_D, TB_EQ, TB_I, TB_X, BandSpec
+from .align import BP_LEFT, BP_UP, INF, TB_D, TB_EQ, TB_I, TB_X, BandSpec
+from .align_dp_cuda import banded_align_batch_dp, banded_align_batch_torch
 from .align_myers_cuda import myers_traceback_device, traceback_scan_words
 
 
@@ -23,9 +25,9 @@ def readout_device(res: dict, q_lens, t_lens, modes, spec: BandSpec):
     """End-cell choice (`align_device.py:readout_device`): the global corner,
     the best cell of the extension row, or the target-exhausted column;
     first-index argmin. Returns int64 (cost, start_i, start_b, clip)."""
-    row_at_q = res["row_at_q"]
-    colmin_val = res["colmin_val"]
-    colmin_i = res["colmin_i"]
+    row_at_q = res["row_at_q"].to(torch.int64)  # int32 from the DP kernels
+    colmin_val = res["colmin_val"].to(torch.int64)
+    colmin_i = res["colmin_i"].to(torch.int64)
     N, W = row_at_q.shape
     dl = spec.dl
     inf = int(INF)
@@ -54,14 +56,73 @@ def readout_device(res: dict, q_lens, t_lens, modes, spec: BandSpec):
     return cost, start_i, start_b, clip
 
 
-def align_traceback_rows(q, q_lens, t, t_lens, modes, spec: BandSpec) -> torch.Tensor:
-    """One fused pass per batch on q's device: Myers DP (the CUDA kernel on a
-    GPU), word readout and row-lockstep traceback. Returns uint8 [N, 16 + B],
-    byte-identical to `align_traceback_rows(kernel="myers")` of the JAX
-    package; decode with `expand_rows_host`."""
-    res, nl_rows, up_rows = myers_traceback_device(q, t, q_lens, t_lens, spec)
+def traceback_rows_device(bp, start_i, start_b, spec: BandSpec) -> torch.Tensor:
+    """Row-lockstep traceback over a backpointer plane (`align_device.py:
+    traceback_rows_device`): run-encode the plane, then walk it one query row
+    per step. Returns uint8 tokens [N, B], `d | (up << 7)` per row."""
+    return traceback_scan(encode_runs(bp), start_i, start_b)
+
+
+def encode_runs(bp: torch.Tensor) -> torch.Tensor:
+    """int16 run encoding of backpointers [..., W] (`align_device.py:
+    encode_runs`): (position+1, is_up) of every non-LEFT cell, then a prefix
+    max along the band finds, for every cell, the non-LEFT cell its LEFT-run
+    ends at. log2(W) doubling passes, one temporary each."""
+    W = bp.shape[-1]
+    lane = torch.arange(W, dtype=torch.int16, device=bp.device)
+    enc = torch.where(bp != BP_LEFT, ((lane + 1) << 1) | (bp == BP_UP).to(torch.int16), 0).to(torch.int16)
+    k = 1
+    while k < W:
+        enc[..., k:] = torch.maximum(enc[..., k:], enc[..., : W - k])  # right side read first
+        k *= 2
+    return enc
+
+
+def traceback_scan(enc: torch.Tensor, start_i, start_b) -> torch.Tensor:
+    """The row-lockstep walk over a run-encoded plane [N, B, W]
+    (`align_device.py:traceback_scan`): B row steps, each reading one cell
+    per alignment (0 outside the band, as the JAX masked sum gives).
+    Returns uint8 tokens [N, B]."""
+    N, B, W = enc.shape
+    si = start_i.to(torch.int64)
+    b = start_b.to(torch.int64)
+    toks = torch.zeros((B, N), dtype=torch.uint8, device=enc.device)
+    for r in range(B, 0, -1):
+        active = r <= si
+        v = enc[:, r - 1, :].gather(1, b.clamp(0, W - 1)[:, None])[:, 0].to(torch.int64)
+        v = torch.where((b >= 0) & (b < W), v, 0)
+        nl = ((v >> 1) - 1).clamp(min=0)  # non-LEFT cell the run ends at
+        up = v & 1
+        d = (b - nl).clamp(min=0)
+        toks[r - 1] = torch.where(active, d | (up << 7), 0).to(torch.uint8)
+        b = torch.where(active, nl + up, b)
+    return toks.t()
+
+
+def align_traceback_rows(q, q_lens, t, t_lens, modes, spec: BandSpec, kernel: str = "myers") -> torch.Tensor:
+    """One fused pass per batch on q's device: DP, readout and row-lockstep
+    traceback. kernel: "myers" (the Myers bit-vector kernel K1 + word
+    readout + clz walk), "pallas" (the int32 banded-DP kernel K2 emitting the
+    run encoding) or "jnp" (the plain DP in torch ops, any band). On a GPU
+    the first two launch their CUDA kernels; CPU tensors take their plain
+    versions. Returns uint8 [N, 16 + B], byte-identical to the JAX package's
+    `align_traceback_rows` with the same kernel; decode with
+    `expand_rows_host`."""
+    if kernel == "myers":
+        res, nl_rows, up_rows = myers_traceback_device(q, t, q_lens, t_lens, spec)
+    elif kernel == "pallas":
+        res = banded_align_batch_dp(q, q_lens, t, t_lens, spec, emit_enc=True)
+    elif kernel == "jnp":
+        res = banded_align_batch_torch(q, q_lens, t, t_lens, spec)
+    else:
+        raise ValueError(f"kernel must be 'myers', 'pallas' or 'jnp', got {kernel!r}")
     cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
-    toks = traceback_scan_words(nl_rows, up_rows, start_i, start_b)
+    if kernel == "myers":
+        toks = traceback_scan_words(nl_rows, up_rows, start_i, start_b)
+    elif kernel == "pallas":
+        toks = traceback_scan(res["enc"], start_i, start_b)
+    else:
+        toks = traceback_rows_device(res["bp"], start_i, start_b, spec)
     meta = torch.stack([cost, clip, start_i, start_b], dim=1).to(torch.int32).contiguous()
     return torch.cat([meta.view(torch.uint8).reshape(meta.shape[0], 16), toks], dim=1)
 

@@ -1,7 +1,8 @@
-"""On-card checks of the PyTorch port: the CUDA kernel against its plain
-PyTorch version, and the fused call and `map_reads` on the GPU against the
-same functions on the CPU. Every test is marked `cuda` and skips without a
-GPU (the kernel has no CPU mode).
+"""On-card checks of the PyTorch port: the CUDA kernels (K1 Myers, K2 int32
+banded DP) against their plain PyTorch versions, and the fused call and
+`map_reads` on the GPU against the same functions on the CPU, for both DP
+kernels. Every test is marked `cuda` and skips without a GPU (the kernels
+have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a machine without JAX:
 
@@ -15,6 +16,7 @@ import torch
 from chip_smoke import random_jobs
 from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads
 from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
+from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
 from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
 from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows
@@ -27,7 +29,7 @@ SPEC = BandSpec(chunk=256, band=128)
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the Myers kernel has no CPU mode")
+        pytest.skip("needs a CUDA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
 
 
@@ -52,23 +54,38 @@ def test_kernel_equals_plain_version(cuda, n):
     assert len(pm) == 2 and torch.equal(pm[0], got[0]) and torch.equal(pm[1], got[1])
 
 
-def test_fused_call_on_card_equals_cpu(cuda):
+@pytest.mark.parametrize("n", [1, 33, 4096])
+@pytest.mark.parametrize("emit_enc", [False, True], ids=["bp", "enc"])
+def test_k2_kernel_equals_plain_version(cuda, n, emit_enc):
+    arrays = [torch.from_numpy(x).to(cuda) for x in _jobs(n, n)]
+    before = ad.banded_align_batch_dp.launches
+    got = ad.banded_align_batch_dp(*arrays, SPEC, emit_enc=emit_enc)
+    torch.cuda.synchronize()
+    assert ad.banded_align_batch_dp.launches == before + 1
+    ref = ad.banded_align_batch_torch(*arrays, SPEC, emit_enc=emit_enc)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        assert got[key].dtype == ref[key].dtype and torch.equal(got[key], ref[key]), key
+
+
+@pytest.mark.parametrize("kernel", ["myers", "pallas"])
+def test_fused_call_on_card_equals_cpu(cuda, kernel):
     arrays = _jobs(7, 2048)
     modes = (np.arange(2048) % 2).astype(np.int32)
     host = [torch.from_numpy(x) for x in (*arrays, modes)]
-    order = (0, 1, 2, 3, 4)  # q, qlens, t, tlens, modes
-    cpu = align_traceback_rows(*(host[i] for i in order), SPEC)
-    gpu = align_traceback_rows(*(host[i].to(cuda) for i in order), SPEC)
+    cpu = align_traceback_rows(*host, SPEC, kernel)
+    gpu = align_traceback_rows(*(x.to(cuda) for x in host), SPEC, kernel)
     assert torch.equal(gpu.cpu(), cpu)
 
 
-def test_map_reads_on_card_equals_cpu(cuda):
+@pytest.mark.parametrize("cfg", [MapConfig(), MapConfig(use_myers=False)], ids=["myers", "pallas"])
+def test_map_reads_on_card_equals_cpu(cuda, cfg):
     rng = np.random.default_rng(3)
     haps = make_haplotypes(12_000, 2, 0.01, rng)
     reads = simulate_reads(haps, coverage=8, read_len=3000, rng=rng,
                            sub_rate=0.06, ins_rate=0.02, del_rate=0.02).seqs
     key = lambda a: (a.read_idx, a.strand, a.q_start, a.q_end, a.t_start, a.t_end,  # noqa: E731
                      a.cigar_ops.tolist(), a.cigar_lens.tolist(), a.nm)
-    cpu = [key(a) for a in map_reads({"c": haps[0]}, reads, MapConfig(), device="cpu")]
-    gpu = [key(a) for a in map_reads({"c": haps[0]}, reads, MapConfig(), device=cuda)]
+    cpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device="cpu")]
+    gpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device=cuda)]
     assert len(cpu) > 0 and gpu == cpu
