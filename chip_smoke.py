@@ -9,20 +9,27 @@ Phases (each prints its result; any failure raises and exits non-zero):
   1. environment: a CUDA device is required; prints the card's name and
      power limit as nvidia-smi reports them;
   2. build: compiles the CUDA kernels from `hairsplitter_tpu_torch/csrc/`
-     with nvcc for sm_90a (one nvcc per source, in parallel), and the native
-     host library with g++;
+     with nvcc for sm_90a (one nvcc per source, in parallel), and the port's
+     own native host library (`csrc/hs_native.cpp`) with g++, both into the
+     package's build directory; the native library must load, so that no
+     run on the card quietly takes the pure-Python twins;
   3. kernels vs plain versions, on 8,192 seeded random jobs at the main
-     path's shape (B = 256, W = 128, edge cases included): K1, the Myers
-     kernel, must equal `myers_rows_torch` in its four word streams, and K2,
-     the int32 banded-DP kernel, must equal `banded_align_batch_torch` in
-     all four outputs in both modes (uint8 bp, int16 enc), bit for bit; all
-     are timed with CUDA events. At 32,768 jobs the fused mapping call with
-     K2 (kernel="pallas") must equal the call with K1 byte for byte, and
-     both calls' parts are timed;
+     path's shape (B = 256, W = 128, edge cases included): K1's check mode,
+     `myers_rows`, must equal `myers_rows_torch` in its four word streams;
+     K1's main-path mode, the fused kernel `myers_fused_cuda`, must equal
+     the plain composition `myers_fused_plain` byte for byte on those jobs
+     and on hand-made edge jobs, each with alternating, all-global and
+     all-extension modes; K2, the int32 banded-DP kernel, must equal
+     `banded_align_batch_torch` in all four outputs in both modes (uint8
+     bp, int16 enc), bit for bit; all are timed with CUDA events and held
+     against their bounds. At 32,768 jobs the fused mapping call with K2
+     (kernel="pallas") must equal the call with K1 byte for byte, one
+     K1 call must be exactly one device launch (torch.profiler), and the
+     calls are timed, K1's also with its host copies;
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
-     (seed 7) and runs the port's CLI on cuda; K1's launch counter must be
-     > 0, the final GFA must exist and every strain's recovery must be
-     >= 0.95;
+     (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
+     counter must be > 0 and the check-mode kernel's must stay 0, the final
+     GFA must exist and every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
      `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; K2's launch
      counter must be > 0 and K1's must not move during stage 2, the mapping
@@ -89,13 +96,55 @@ def random_jobs(rng: np.random.Generator, n: int, spec):
     return q, qlens, t, tlens
 
 
+def edge_jobs(spec, seed: int = 11):
+    """Hand-made jobs at the corners of the fused call's definition: every
+    pair of qlen in {0, 1, 2, B/2, B-1, B, B+1} and tlen in {0, 1, qlen,
+    qlen-64-5 (the corner leaves the band on the left), qlen+63, qlen+64
+    (leaves it on the right), T}, each once with the target an exact copy of
+    the query as far as it reaches and once with an unrelated target.
+    qlen = B+1 is a length the packer never makes; the plain version defines
+    it (an all-INF extension row) and the kernel must agree."""
+    from hairsplitter_tpu_torch.ops.align import Q_SENTINEL, T_SENTINEL
+
+    rng = np.random.default_rng(seed)
+    B, T = spec.chunk, spec.t_width
+    jobs = []
+    for ql in (0, 1, 2, B // 2, B - 1, B, B + 1):
+        for tl in (0, 1, ql, ql - 64 - 5, ql + 63, ql + 64, T):
+            if not 0 <= tl <= T:
+                continue
+            for related in (True, False):
+                jobs.append((ql, tl, related))
+    n = len(jobs)
+    q = np.full((n, B), Q_SENTINEL, np.int8)
+    t = np.full((n, T), T_SENTINEL, np.int8)
+    qlens = np.zeros(n, np.int32)
+    tlens = np.zeros(n, np.int32)
+    for i, (ql, tl, related) in enumerate(jobs):
+        base = rng.integers(0, 4, max(ql, tl)).astype(np.int8)
+        q[i, : min(ql, B)] = base[: min(ql, B)]
+        t[i, :tl] = base[:tl] if related else rng.integers(0, 4, tl)
+        qlens[i], tlens[i] = ql, tl
+    return q, qlens, t, tlens
+
+
+MODE_PATTERNS = ("alternating", "global", "extension")
+
+
+def mode_pattern(name: str, n: int) -> np.ndarray:
+    """int32 modes [n]: 0 = global, 1 = extension."""
+    if name == "alternating":
+        return (np.arange(n) % 2).astype(np.int32)
+    return np.full(n, 0 if name == "global" else 1, np.int32)
+
+
 def build_dataset(root: str):
     """The smoke dataset (`scripts/bench_pipeline.py:build_dataset` defaults):
     300 kb x 3 strains at 1% divergence, 30x of 8 kb reads, 10% error
     (60% substitutions), seed 7; the assembly is the first strain.
     Returns (assembly path, reads path, haplotypes, reads)."""
-    from hairsplitter_tpu.io.fasta import write_fasta
-    from hairsplitter_tpu.utils import sim
+    from hairsplitter_tpu_torch.io.fasta import write_fasta
+    from hairsplitter_tpu_torch.utils import sim
 
     rng = np.random.default_rng(7)
     haps = sim.make_haplotypes(300_000, 3, 0.01, rng)
@@ -108,6 +157,31 @@ def build_dataset(root: str):
     write_fasta(asm_path, {"asm": haps[0]})
     sim.write_sim_fasta(reads_path, reads)
     return asm_path, reads_path, haps, reads
+
+
+# peaks of one H100 SXM for the kernels' bounds: device memory rate, and the
+# int32 rate outside the tensor cores (132 SMs x 64 INT32 lanes x 1.98 GHz,
+# the card's maximum SM clock as nvidia-smi reports it)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations the kernels' functions need, counted from their sources
+# as three-input logic ops, shifts, adds and selects: one Myers row over the
+# 4-word band with the backpointer classes and the window slide (150), the
+# same plus the readout's running quantities (160), one step of the walk
+# (mask, clz, token: 30), one int32 DP cell (compare, two adds, two minima,
+# two selects, the run code: 8)
+OPS_MYERS_ROW = 150
+OPS_FUSED_ROW = 160
+OPS_WALK_ROW = 30
+OPS_DP_CELL = 8
+
+
+def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """Least time in ms the card could take: the larger of bytes over the
+    memory rate and integer operations over the int32 rate, and which."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / INT32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -140,12 +214,13 @@ def main() -> int:
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda}; card: {card}", flush=True)
 
     import hairsplitter_tpu_torch  # noqa: F401  (sets full-precision f32 matmuls)
-    from hairsplitter_tpu import native
+    from hairsplitter_tpu_torch import native
     from hairsplitter_tpu_torch.ops import _build
     from hairsplitter_tpu_torch.ops.align import BandSpec
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
-    from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, readout_device, traceback_scan
+    from hairsplitter_tpu_torch.ops.align_device import (
+        align_traceback_rows, myers_fused_plain, readout_device, traceback_scan)
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -156,16 +231,20 @@ def main() -> int:
         if "registers" in line or "spill" in line:
             print(f"[build]   {line.strip()}")
     t0 = time.perf_counter()
-    native_built = not os.path.exists(os.path.join(native._native_dir(), "libhs_native.so"))
-    assert native.get_lib() is not None, "native host library (native/Makefile, g++) did not build"
-    print(f"[build] native host library (g++, built now: {native_built}): "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    assert native.get_lib() is not None, \
+        "native host library (hairsplitter_tpu_torch/csrc/hs_native.cpp, g++) did not build"
+    native_so = _build.build_native()
+    assert os.path.dirname(native_so) == _build.BUILD_DIR, native_so
+    print(f"[build] native host library (g++, built now: {'native_seconds' in _build.build_info}): "
+          f"{time.perf_counter() - t0:.2f} s -> {native_so}", flush=True)
 
     # ---- 3. kernels vs plain versions
     dev = torch.device("cuda")
     spec = BandSpec(chunk=B, band=128)
+    T = spec.t_width
     rng = np.random.default_rng(0)
-    q, qlens, t, tlens = random_jobs(rng, N_CHECK, spec)
+    check_jobs = random_jobs(rng, N_CHECK, spec)
+    q, qlens, t, tlens = check_jobs
     qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
     qld, tld = torch.from_numpy(qlens).to(dev), torch.from_numpy(tlens).to(dev)
     got = am.myers_rows(qd, td, spec, emit_tb=True)
@@ -177,10 +256,39 @@ def main() -> int:
         diff = int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
         max_err = max(max_err, diff)
         assert torch.equal(a, b), f"K1 stream {name} differs from the plain version"
+    del got, ref
     k_ms = cuda_ms(lambda: am.myers_rows(qd, td, spec, emit_tb=True), 50)
-    p_ms = cuda_ms(lambda: am.myers_rows_torch(qd, td, spec, emit_tb=True), 3)
+    p_ms = cuda_ms(lambda: am.myers_rows_torch(qd, td, spec, emit_tb=True), 2)
     print(f"[kernel] myers_rows == myers_rows_torch on {N_CHECK} jobs x B={B} (4 streams, bit for bit); "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms", flush=True)
+
+    # K1's main-path mode: the fused kernel against the plain composition
+    # (myers_rows_torch -> myers_word_readout -> readout_device ->
+    # traceback_scan_words), byte for byte
+    fused_err = 0
+    for label, jobs in (("edge", edge_jobs(spec)), (str(N_CHECK), check_jobs)):
+        n = jobs[0].shape[0]
+        arrays = [torch.from_numpy(x).to(dev) for x in jobs]
+        for pattern in MODE_PATTERNS:
+            md = torch.from_numpy(mode_pattern(pattern, n)).to(dev)
+            got = am.myers_fused_cuda(*arrays, md, spec)
+            torch.cuda.synchronize()
+            ref = myers_fused_plain(*arrays, md, spec)
+            assert got.dtype == ref.dtype == torch.uint8 and got.shape == ref.shape == (n, 16 + B)
+            fused_err = max(fused_err, int((got.to(torch.int16) - ref.to(torch.int16)).abs().max()))
+            assert torch.equal(got, ref), (
+                f"the fused Myers kernel differs from the plain composition on the {label} jobs, "
+                f"{pattern} modes: rows {(got != ref).any(dim=1).nonzero()[:8, 0].tolist()}")
+        print(f"[kernel K1 fused] myers_fused_cuda == myers_fused_plain on the {label} jobs ({n} x B={B}; "
+              f"modes {', '.join(MODE_PATTERNS)}; byte for byte)", flush=True)
+    modes_check = torch.from_numpy(mode_pattern("alternating", N_CHECK)).to(dev)
+    fused_check = [qd, qld, td, tld, modes_check]
+    f_ms = cuda_ms(lambda: am.myers_fused_cuda(*fused_check, spec), 50)
+    fp_ms = cuda_ms(lambda: myers_fused_plain(*fused_check, spec), 1)
+    meta_check = am.myers_fused_cuda(*fused_check, spec)[:, :16].contiguous().view(torch.int32)
+    rows_fwd = int(qld.clamp(0, B).sum())  # rows the forward pass steps
+    rows_bwd = int(meta_check[:, 2].sum())  # rows the walk visits (start_i)
+    del meta_check
 
     k2_err = 0
     k2_ms, k2_plain_ms = {}, {}
@@ -196,43 +304,94 @@ def main() -> int:
             assert torch.equal(a, b), f"K2 output {key} (emit_enc={emit_enc}) differs from the plain version"
         mode = "enc" if emit_enc else "bp"
         k2_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=emit_enc), 20)
-        k2_plain_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=emit_enc), 3)
+        k2_plain_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=emit_enc), 2)
         del got, ref
     print(f"[kernel K2] banded_align_batch_dp == banded_align_batch_torch on {N_CHECK} jobs x B={B} "
           f"(bp, enc, row_at_q, colmin_val, colmin_i; bit for bit); "
           + ", ".join(f"{m}: kernel {k2_ms[m]:.4f} ms, plain {k2_plain_ms[m]:.2f} ms" for m in k2_ms),
           flush=True)
 
-    # the fused mapping call's parts at ~stage-2 size
+    # bounds of the three kernels on the check jobs: the larger of the bytes
+    # each function must move (inputs read once, outputs written once) over
+    # the memory rate, and its integer operations over the int32 rate
+    in_bytes = N_CHECK * (B + T)
+    bounds = {
+        "myers_rows": bound_ms(in_bytes + 4 * N_CHECK * B * 16, N_CHECK * B * OPS_MYERS_ROW),
+        "myers_fused": bound_ms(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
+                                rows_fwd * OPS_FUSED_ROW + rows_bwd * OPS_WALK_ROW),
+        "banded_dp": bound_ms(in_bytes + 8 * N_CHECK + N_CHECK * B * 128 * 2 + N_CHECK * (128 + 2) * 4,
+                              N_CHECK * B * 128 * OPS_DP_CELL),
+    }
+    scratch_ms = (rows_fwd + rows_bwd) * 32 / HBM_BYTES_PER_S * 1e3
+    print(f"[kernel K1 fused] {N_CHECK} jobs (modes alternating): kernel {f_ms:.4f} ms, plain composition "
+          f"{fp_ms:.2f} ms; bound {bounds['myers_fused'][0]:.4f} ms by {bounds['myers_fused'][1]} "
+          f"({rows_fwd} forward rows, {rows_bwd} walked rows); its scratch through device memory "
+          f"(32 B written per forward row, 32 B read per walked row) would take {scratch_ms:.4f} ms", flush=True)
+
+    # the fused mapping call at ~stage-2 size
     q, qlens, t, tlens = random_jobs(np.random.default_rng(1), N_FUSED, spec)
+    modes_np = mode_pattern("alternating", N_FUSED)
     qd, td = torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev)
     qld, tld = torch.from_numpy(qlens).to(dev), torch.from_numpy(tlens).to(dev)
-    modes = (torch.arange(N_FUSED, device=dev) % 2).to(torch.int32)
-    res, nl, up = am.myers_traceback_device(qd, td, qld, tld, spec)
-    cost, si, sb, clip = readout_device(res, qld, tld, modes, spec)
-    parts = {
-        "kernel": cuda_ms(lambda: am.myers_rows(qd, td, spec, emit_tb=True), 10),
-        "word_readout": cuda_ms(lambda: am.myers_traceback_device(qd, td, qld, tld, spec), 5),
-        "traceback_scan_words": cuda_ms(lambda: am.traceback_scan_words(nl, up, si, sb), 3),
-    }
-    parts["word_readout"] -= parts["kernel"]
-    del res, nl, up
+    modes = torch.from_numpy(modes_np).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     fused_k1 = align_traceback_rows(qd, qld, td, tld, modes, spec, "myers")
+    torch.cuda.synchronize()
+    fused_peak = torch.cuda.max_memory_allocated() - mem0
     fused_k2 = align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas")
     assert torch.equal(fused_k2, fused_k1), "the fused buffer with K2 differs from the buffer with K1"
-    del fused_k1, fused_k2
-    parts["fused_call"] = cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "myers"), 3)
-    print("[fused] K2 buffer == K1 buffer on %d jobs (byte for byte)" % N_FUSED, flush=True)
-    print("[fused] K1 parts at %d jobs: %s" % (
-        N_FUSED, ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())), flush=True)
+    print("[fused] K2 buffer == K1 buffer (one fused kernel) on %d jobs (byte for byte)" % N_FUSED, flush=True)
+    meta = fused_k1[:, :16].contiguous().view(torch.int32)
+    rows_fwd32, rows_bwd32 = int(qld.clamp(0, B).sum()), int(meta[:, 2].sum())
+    del fused_k1, fused_k2, meta
+
+    # device launches inside one fused call, by the profiler
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        align_traceback_rows(qd, qld, td, tld, modes, spec, "myers")
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[fused] device activities inside one align_traceback_rows(kernel='myers') call "
+          f"(torch.profiler): {len(on_device)}: {on_device}", flush=True)
+    assert len(on_device) == 1 and "myers_fused" in on_device[0], \
+        "the fused call must be one launch of the fused kernel and nothing else"
+
+    def call_as_run_jobs():
+        """The copies and the call as `core/mapping.py:run_jobs` makes them."""
+        arrays = [torch.from_numpy(x).to(dev) for x in (q, qlens, t, tlens, modes_np)]
+        return align_traceback_rows(*arrays, spec, "myers").cpu().numpy()
+
+    call_as_run_jobs()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call_as_run_jobs()
+    with_copies_ms = (time.perf_counter() - t0) / 3 * 1e3
+    parts = {
+        "kernel": cuda_ms(lambda: am.myers_fused_cuda(qd, qld, td, tld, modes, spec), 20),
+        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "myers"), 20),
+        "plain_composition": cuda_ms(lambda: myers_fused_plain(qd, qld, td, tld, modes, spec), 1),
+        "check_mode_kernel": cuda_ms(lambda: am.myers_rows(qd, td, spec, emit_tb=True), 10),
+    }
+    b32 = bound_ms(N_FUSED * (B + T + 12 + 16 + B), rows_fwd32 * OPS_FUSED_ROW + rows_bwd32 * OPS_WALK_ROW)
+    print("[fused] K1 at %d jobs: %s; bound %.4f ms by %s; scratch traffic %.4f ms; "
+          "device memory of one call %.1f MB" % (
+              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), b32[0], b32[1],
+              (rows_fwd32 + rows_bwd32) * 32 / HBM_BYTES_PER_S * 1e3, fused_peak / 1e6), flush=True)
+    print("[fused] K1 call with its copies as run_jobs makes them (pageable host to device, call, "
+          "device to host; host clock): %.3f ms at %d jobs" % (with_copies_ms, N_FUSED), flush=True)
+    occ = _build.load_kernels().hs_myers_fused_occupancy(B, T)
+    print(f"[fused] occupancy of the fused kernel at B={B}, T={T}: {occ} blocks of 32 threads per SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+
     res = ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True)
     cost, si, sb, clip = readout_device(res, qld, tld, modes, spec)
     k2_parts = {
         "kernel": cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True), 10),
         "readout": cuda_ms(lambda: readout_device(res, qld, tld, modes, spec), 5),
-        "traceback_scan": cuda_ms(lambda: traceback_scan(res["enc"], si, sb), 3),
-        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 3),
-        "plain_dp": cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=True), 2),
+        "traceback_scan": cuda_ms(lambda: traceback_scan(res["enc"], si, sb), 2),
+        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 2),
+        "plain_dp": cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=True), 1),
     }
     enc_bytes = res["enc"].numel() * res["enc"].element_size()
     print("[fused] K2 parts at %d jobs: %s; enc plane %.3f GB, %.3f TB/s (%.1f%% of 3.35 TB/s)" % (
@@ -242,8 +401,8 @@ def main() -> int:
     del res, cost, si, sb, clip
 
     # ---- 4. main path through the CLI
-    from hairsplitter_tpu.io.gfa import parse_gfa
-    from hairsplitter_tpu.utils.evaluate import evaluate_phasing
+    from hairsplitter_tpu_torch.io.gfa import parse_gfa
+    from hairsplitter_tpu_torch.utils.evaluate import evaluate_phasing
     from hairsplitter_tpu_torch import cli
     from hairsplitter_tpu_torch.core.mapping import MapConfig
     from hairsplitter_tpu_torch.pipeline import orchestrate
@@ -274,6 +433,7 @@ def main() -> int:
               flush=True)
 
         out = os.path.join(root, "out")
+        am.myers_fused_cuda.launches = 0
         am.myers_rows.launches = 0
         ad.banded_align_batch_dp.launches = 0
         torch.cuda.synchronize()
@@ -281,11 +441,13 @@ def main() -> int:
         rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = am.myers_rows.launches
+        launches = am.myers_fused_cuda.launches
+        check_mode_launches = am.myers_rows.launches
         assert rc == 0, f"CLI returned {rc}"
-        assert launches > 0, "the main path never launched the Myers kernel"
-        print(f"[main] CLI on cuda: K1 launches {launches}, K2 launches "
-              f"{ad.banded_align_batch_dp.launches}", flush=True)
+        assert launches > 0, "the main path never launched the fused Myers kernel"
+        assert check_mode_launches == 0, "the main path launched K1's check-mode kernel"
+        print(f"[main] CLI on cuda: K1 fused launches {launches}, K1 check-mode launches "
+              f"{check_mode_launches}, K2 launches {ad.banded_align_batch_dp.launches}", flush=True)
         check_run(out, wall, "main")
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
@@ -294,14 +456,15 @@ def main() -> int:
         stage2_map_reads = orchestrate.map_reads
 
         def counted_map_reads(*args, **kwargs):
-            k1, k2 = am.myers_rows.launches, ad.banded_align_batch_dp.launches
+            k1, k2 = am.myers_fused_cuda.launches, ad.banded_align_batch_dp.launches
             alns = stage2_map_reads(*args, **kwargs)
-            stage2["k1"] += am.myers_rows.launches - k1
+            stage2["k1"] += am.myers_fused_cuda.launches - k1
             stage2["k2"] += ad.banded_align_batch_dp.launches - k2
             return alns
 
         orchestrate.map_reads = counted_map_reads  # the stage-2 call site
         try:
+            am.myers_fused_cuda.launches = 0
             am.myers_rows.launches = 0
             ad.banded_align_batch_dp.launches = 0
             torch.cuda.synchronize()
@@ -315,7 +478,8 @@ def main() -> int:
         finally:
             orchestrate.map_reads = stage2_map_reads
         k2_launches = ad.banded_align_batch_dp.launches
-        k1_later = am.myers_rows.launches
+        k1_later = am.myers_fused_cuda.launches
+        assert am.myers_rows.launches == 0, "the use_myers=False run launched K1's check-mode kernel"
         print(f"[main K2] run_pipeline(map=MapConfig(use_myers=False)) on cuda: K2 launches "
               f"{k2_launches} (stage 2: {stage2['k2']}), K1 launches in stage 2 {stage2['k1']}, "
               f"K1 launches of the stage-5/6 remaps (default MapConfig) {k1_later - stage2['k1']}",
@@ -329,25 +493,25 @@ def main() -> int:
               "to the K1 run's", flush=True)
         check_run(out_k2, wall, "main K2")
 
-    print(json.dumps({"kernels": [{
-        "name": "myers_rows",
-        "route": "cuda",
-        "source": "hairsplitter_tpu_torch/csrc/myers_rows.cu",
-        "replaces": "hairsplitter_tpu/ops/align_myers_pallas.py:50",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
-    }, {
-        "name": "banded_dp",
-        "route": "cuda",
-        "source": "hairsplitter_tpu_torch/csrc/banded_dp.cu",
-        "replaces": "hairsplitter_tpu/ops/align_pallas.py:50",
-        "launches": k2_launches,
-        "max_abs_err": k2_err,
-        "ms": k2_ms["enc"],
-        "plain_ms": k2_plain_ms["enc"],
-    }]}))
+    def entry(name, source, replaces, n_launches, err, ms, plain_ms):
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n_launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+            "library_ms": None,  # no single PyTorch call computes any of these functions
+        }
+
+    # times, errors and bounds are the check jobs' (8,192 x B=256); launches
+    # are the main-path runs' (myers_rows is K1's check mode, off the path)
+    k1_at = "hairsplitter_tpu/ops/align_myers_pallas.py:50"
+    print(json.dumps({"kernels": [
+        entry("myers_rows", "hairsplitter_tpu_torch/csrc/myers_rows.cu", k1_at,
+              check_mode_launches, max_err, k_ms, p_ms),
+        entry("myers_fused", "hairsplitter_tpu_torch/csrc/myers_fused.cu", k1_at,
+              launches, fused_err, f_ms, fp_ms),
+        entry("banded_dp", "hairsplitter_tpu_torch/csrc/banded_dp.cu",
+              "hairsplitter_tpu/ops/align_pallas.py:50", k2_launches, k2_err, k2_ms["enc"], k2_plain_ms["enc"]),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,7 +1,7 @@
 """Read→assembly mapping: seeding + chaining + batched banded DP + stitching.
 
-Counterpart of `hairsplitter_tpu/core/mapping.py`. Host seeding and chaining
-(`hairsplitter_tpu.core.seeding`, native C++) are reused; the chunk jobs
+Counterpart of `hairsplitter_tpu/core/mapping.py`. Seeding and chaining run
+on host (`core/seeding.py`, native C++); the chunk jobs
 between pins go through ONE fused mapping call per `map_reads` (up to a
 memory cap of `MAX_JOBS_PER_LAUNCH` jobs): a DP kernel, readout and
 row-lockstep traceback (`ops/align_device.py`), decoded on host. The DP is
@@ -19,17 +19,19 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from hairsplitter_tpu import native as _native
-from hairsplitter_tpu.constants import encode_seq, revcomp_codes
-from hairsplitter_tpu.core.datatypes import Alignment
-from hairsplitter_tpu.core.seeding import MinimizerIndex, find_chains_batch
-from hairsplitter_tpu.io.cigar import compress_cigar
+from .. import native as _native
+from ..constants import encode_seq, revcomp_codes
+from ..core.datatypes import Alignment
+from ..core.seeding import MinimizerIndex, find_chains_batch
+from ..io.cigar import compress_cigar
 
 from ..ops.align import Q_SENTINEL, T_SENTINEL, BandSpec
 from ..ops.align_device import align_traceback_rows, expand_rows_host
 
-# jobs per fused call: ~4.3 GB of device temporaries at B = 256 (the Myers
-# word streams are 64 B per row and job, the int32 DP's enc plane 256 B)
+# jobs per fused call. At B = 256 the fused Myers kernel allocates 0.6 GB for
+# a full call (its walk scratch is 32 B per row and job, plus inputs and the
+# fused buffer); the int32 DP path allocates 4.3 GB (an enc plane of 256 B
+# per row and job)
 MAX_JOBS_PER_LAUNCH = 1 << 16
 
 
@@ -51,7 +53,7 @@ class MapConfig:
     # the int32 banded-DP kernel (csrc/banded_dp.cu), when the Myers kernel
     # is off or the band is not its 128; False runs the plain DP (any band)
     use_pallas: bool = True
-    # the Myers bit-vector kernel (csrc/myers_rows.cu), the default DP at band 128
+    # the Myers bit-vector kernel (csrc/myers_fused.cu), the default DP at band 128
     use_myers: bool = True
     # reads with no accepted alignment get a second pass with shorter, denser
     # minimizers

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from hairsplitter_tpu.core.datatypes import Alignment
+from ..core.datatypes import Alignment
 
 from ..pipeline.call_variants import ContigVariants, SparseColumn
 from ..pipeline.separate_reads import ContigGroups, WindowGroups

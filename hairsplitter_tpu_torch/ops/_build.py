@@ -1,4 +1,5 @@
-"""Build and load the package's CUDA kernels at first use.
+"""Build and load the package's CUDA kernels and its native host library at
+first use.
 
 `csrc/*.cu` hold kernels with a plain C interface. Each source is compiled
 with nvcc for Hopper (`sm_90a`) by its own process, all started together,
@@ -6,7 +7,8 @@ and the objects are linked into one shared library in
 `hairsplitter_tpu_torch/build/` (git-ignored), loaded with ctypes. No
 PyTorch headers are compiled, so a build takes seconds. The library name
 carries a hash of the sources, so an edited kernel is never served from a
-stale build.
+stale build. `csrc/hs_native.cpp`, the host-runtime library (seeding, pins,
+POA, token decoding), is built the same way with g++ (`build_native`).
 """
 
 from __future__ import annotations
@@ -22,11 +24,15 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("myers_rows.cu", "banded_dp.cu")
+SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu")
+HEADERS = ("myers_common.cuh",)  # included by the sources: part of the digest
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+NATIVE_SOURCE = "hs_native.cpp"
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
 
 _lib = None
 build_info: dict = {}  # seconds, library path and ptxas report of the last build/load
@@ -44,7 +50,7 @@ def _nvcc() -> str:
 
 def _sources_digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(CSRC_DIR, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -85,6 +91,36 @@ def build(force: bool = False) -> str:
     return so
 
 
+def build_native() -> str:
+    """Compile the native host library with g++ (unless an up-to-date build
+    exists); returns the shared library's path. Raises RuntimeError when the
+    compiler is missing or fails."""
+    src = os.path.join(CSRC_DIR, NATIVE_SOURCE)
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(GXX_FLAGS).encode())
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    so = os.path.join(BUILD_DIR, f"libhs_native_{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    gxx = shutil.which(os.environ.get("CXX", "g++"))
+    if gxx is None:
+        raise RuntimeError("g++ not found: the native host library needs a C++17 compiler")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        tmp = os.path.join(work, "lib.so")
+        try:
+            proc = subprocess.run([gxx, *GXX_FLAGS, "-o", tmp, src], capture_output=True, text=True, timeout=300)
+        except subprocess.TimeoutExpired as exc:
+            raise RuntimeError(f"g++ timed out on {NATIVE_SOURCE}") from exc
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {NATIVE_SOURCE} ({proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, so)
+    build_info.update(native_path=so, native_seconds=time.perf_counter() - t0)
+    return so
+
+
 def load_kernels() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
@@ -103,6 +139,22 @@ def load_kernels() -> ctypes.CDLL:
             ctypes.c_void_p,  # isup words (or null)
             ctypes.c_void_p,  # cudaStream_t
         ]
+        lib.hs_myers_fused.restype = ctypes.c_int
+        lib.hs_myers_fused.argtypes = [
+            ctypes.c_void_p,  # q int8 [N, B]
+            ctypes.c_void_p,  # t int8 [N, T]
+            ctypes.c_void_p,  # q_lens int32 [N]
+            ctypes.c_void_p,  # t_lens int32 [N]
+            ctypes.c_void_p,  # modes int32 [N]
+            ctypes.c_int,  # N
+            ctypes.c_int,  # B
+            ctypes.c_int,  # T
+            ctypes.c_void_p,  # scratch: (nonleft, isup) words [B, N, 2, 4]
+            ctypes.c_void_p,  # out uint8 [N, 16 + B]
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.hs_myers_fused_occupancy.restype = ctypes.c_int
+        lib.hs_myers_fused_occupancy.argtypes = [ctypes.c_int, ctypes.c_int]  # B, T
         lib.hs_banded_dp.restype = ctypes.c_int
         lib.hs_banded_dp.argtypes = [
             ctypes.c_void_p,  # q int8 [N, B]

@@ -1,5 +1,7 @@
-"""The fused mapping call: DP kernel + end-cell readout + row-lockstep
-traceback in one device pass, decoded on host.
+"""The fused mapping call: DP + end-cell readout + row-lockstep traceback in
+one device pass, decoded on host. With the Myers DP (the default) the whole
+call is one CUDA kernel on a GPU (`csrc/myers_fused.cu`); its plain version,
+`myers_fused_plain`, is the same function composed from torch ops.
 
 Counterpart of `hairsplitter_tpu/ops/align_device.py`: `readout_device`
 (:36-65), `traceback_rows_device`, `encode_runs` and `traceback_scan`
@@ -14,11 +16,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hairsplitter_tpu import native as _native
+from .. import native as _native
 
 from .align import BP_LEFT, BP_UP, INF, TB_D, TB_EQ, TB_I, TB_X, BandSpec
 from .align_dp_cuda import banded_align_batch_dp, banded_align_batch_torch
-from .align_myers_cuda import myers_traceback_device, traceback_scan_words
+from .align_myers_cuda import myers_fused_cuda, myers_rows_torch, myers_word_readout, traceback_scan_words
 
 
 def readout_device(res: dict, q_lens, t_lens, modes, spec: BandSpec):
@@ -99,32 +101,64 @@ def traceback_scan(enc: torch.Tensor, start_i, start_b) -> torch.Tensor:
     return toks.t()
 
 
+def _fused_buffer(cost, clip, start_i, start_b, toks) -> torch.Tensor:
+    """uint8 [N, 16 + B]: int32 cost, clip, start_i, start_b, then the tokens."""
+    meta = torch.stack([cost, clip, start_i, start_b], dim=1).to(torch.int32).contiguous()
+    return torch.cat([meta.view(torch.uint8).reshape(meta.shape[0], 16), toks], dim=1)
+
+
+def myers_fused_plain(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -> torch.Tensor:
+    """Plain PyTorch version of the fused Myers kernel, on any device:
+    `myers_rows_torch` -> `myers_word_readout` -> `readout_device` ->
+    `traceback_scan_words`. Nothing of size [N, B, W] is materialised.
+
+    Exactness (kept from `align_myers_pallas.py:myers_traceback_device`): the
+    (nonleft, isup) bits equal the int32 kernel's op classification on every
+    cell a traceback can visit — visited cells satisfy 1 <= i <= start_i <=
+    qlen and the prefix-max a visited cell reads only covers lanes with
+    0 <= j' <= j <= tlen (j is non-increasing along the walk), where the
+    pure-bitvector recurrence is exact; the j == 0 column is forced UP
+    (provably its classification in the masked DP), so the j < 0 sentinel
+    region can never capture a run. Matches edlib's traceback over its own
+    P/M blocks (`src/edlib/src/edlib.cpp`, obtainAlignmentTraceback) rather
+    than re-deriving cell scores."""
+    P, M, nl, up = myers_rows_torch(q, t, spec, emit_tb=True)
+    res = myers_word_readout(P, M, q_lens, t_lens, spec)
+    cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
+    # the walk takes row-major [B, N, 4] streams: undo the public layout's view
+    toks = traceback_scan_words(nl.permute(1, 0, 2), up.permute(1, 0, 2), start_i, start_b)
+    return _fused_buffer(cost, clip, start_i, start_b, toks)
+
+
 def align_traceback_rows(q, q_lens, t, t_lens, modes, spec: BandSpec, kernel: str = "myers") -> torch.Tensor:
     """One fused pass per batch on q's device: DP, readout and row-lockstep
-    traceback. kernel: "myers" (the Myers bit-vector kernel K1 + word
-    readout + clz walk), "pallas" (the int32 banded-DP kernel K2 emitting the
-    run encoding) or "jnp" (the plain DP in torch ops, any band). On a GPU
-    the first two launch their CUDA kernels; CPU tensors take their plain
-    versions. Returns uint8 [N, 16 + B], byte-identical to the JAX package's
-    `align_traceback_rows` with the same kernel; decode with
-    `expand_rows_host`."""
+    traceback. kernel: "myers" (K1: on a GPU the one fused Myers kernel),
+    "pallas" (the int32 banded-DP kernel K2 emitting the run encoding, then
+    the readout and the walk in torch ops) or "jnp" (the plain DP in torch
+    ops, any band). On a GPU the first two launch their CUDA kernels; CPU
+    tensors take their plain versions. Returns uint8 [N, 16 + B],
+    byte-identical to the JAX package's `align_traceback_rows` with the same
+    kernel; decode with `expand_rows_host`."""
     if kernel == "myers":
-        res, nl_rows, up_rows = myers_traceback_device(q, t, q_lens, t_lens, spec)
-    elif kernel == "pallas":
+        # a CUDA tensor launches the kernel or raises; only a CPU tensor
+        # takes the plain composition
+        if q.device.type == "cuda":
+            return myers_fused_cuda(q, q_lens, t, t_lens, modes, spec)
+        if q.device.type == "cpu":
+            return myers_fused_plain(q, q_lens, t, t_lens, modes, spec)
+        raise ValueError(f"unsupported device {q.device}")
+    if kernel == "pallas":
         res = banded_align_batch_dp(q, q_lens, t, t_lens, spec, emit_enc=True)
     elif kernel == "jnp":
         res = banded_align_batch_torch(q, q_lens, t, t_lens, spec)
     else:
         raise ValueError(f"kernel must be 'myers', 'pallas' or 'jnp', got {kernel!r}")
     cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
-    if kernel == "myers":
-        toks = traceback_scan_words(nl_rows, up_rows, start_i, start_b)
-    elif kernel == "pallas":
+    if kernel == "pallas":
         toks = traceback_scan(res["enc"], start_i, start_b)
     else:
         toks = traceback_rows_device(res["bp"], start_i, start_b, spec)
-    meta = torch.stack([cost, clip, start_i, start_b], dim=1).to(torch.int32).contiguous()
-    return torch.cat([meta.view(torch.uint8).reshape(meta.shape[0], 16), toks], dim=1)
+    return _fused_buffer(cost, clip, start_i, start_b, toks)
 
 
 def expand_rows_host(fused, qb, tb, spec: BandSpec):

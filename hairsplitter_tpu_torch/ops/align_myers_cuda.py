@@ -1,9 +1,15 @@
-"""Myers bit-vector banded DP: the CUDA kernel's wrapper, its plain PyTorch
-twin, and the word-level readout and traceback that consume its streams.
+"""Myers bit-vector banded DP: the wrappers of its two CUDA kernels, its plain
+PyTorch twin, and the word-level readout and traceback in torch ops.
 
-Counterpart of `hairsplitter_tpu/ops/align_myers_pallas.py`. Words are 32-bit
-bit patterns stored in int32 tensors; arithmetic on them runs in int64 masked
-to 32 bits, so `>>` stays a logical shift and `~x` is masked back.
+Counterpart of `hairsplitter_tpu/ops/align_myers_pallas.py`. K1 has two
+modes on the card: `myers_fused_cuda` (`csrc/myers_fused.cu`, the main path:
+DP, readout and traceback in one launch, straight to the fused buffer) and
+`myers_rows` (`csrc/myers_rows.cu`, the check mode: the four word streams of
+the Pallas kernel). The torch-op readout and walk below are the plain
+version of what the fused kernel does in registers; `ops/align_device.py:
+myers_fused_plain` composes them. Words are 32-bit bit patterns stored in
+int32 tensors; arithmetic on them runs in int64 masked to 32 bits, so `>>`
+stays a logical shift and `~x` is masked back.
 
 Layouts: the kernel and the plain twin both produce row-major streams
 [B, N, 4] (row r of every alignment is one contiguous [N, 4] slab, which
@@ -212,6 +218,49 @@ def myers_rows(q: torch.Tensor, t: torch.Tensor, spec: BandSpec = BandSpec(), em
 myers_rows.launches = 0
 
 
+def myers_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -> torch.Tensor:
+    """The fused K1 launch (`csrc/myers_fused.cu`) on CUDA tensors: DP,
+    end-cell readout and traceback walk in one kernel. Returns the fused
+    buffer uint8 [N, 16 + B] (int32 cost, clip, start_i, start_b, then one
+    token `d | up << 7` per query row). One launch per call, counted in
+    `myers_fused_cuda.launches`; nothing else runs on the device but the
+    allocation of the output and of the walk's scratch (32 B per row and
+    job: the nonleft and isup words)."""
+    from ._build import load_kernels
+
+    _check_inputs(q, t, spec)
+    N, B = q.shape
+    T = t.shape[1]
+    if q.device.type != "cuda":
+        raise ValueError(f"myers_fused_cuda takes CUDA tensors, got {q.device}")
+    if B % 16 != 0:
+        raise ValueError(f"the fused Myers kernel needs a chunk that is a multiple of 16, got {B}")
+    for name, x in (("q_lens", q_lens), ("t_lens", t_lens), ("modes", modes)):
+        if x.dtype != torch.int32 or x.shape != (N,) or x.device != q.device:
+            raise TypeError(f"{name} must be an int32 tensor of shape [{N}] on {q.device}")
+    tensors = (q, t, q_lens, t_lens, modes)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, t, q_lens, t_lens and modes must be contiguous")
+    if q.data_ptr() % 16 or t.data_ptr() % 16:
+        raise ValueError("q and t must be 16-byte aligned")
+    lib = load_kernels()
+    out = torch.empty((N, 16 + B), dtype=torch.uint8, device=q.device)
+    scratch = torch.empty((B, N, 2, NW), dtype=torch.int32, device=q.device)  # (nonleft, isup) per row and job
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hs_myers_fused(
+            *(x.data_ptr() for x in tensors), N, B, T,
+            scratch.data_ptr(), out.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"hs_myers_fused launch failed with CUDA error {rc}")
+    myers_fused_cuda.launches += 1
+    return out
+
+
+myers_fused_cuda.launches = 0
+
+
 # ---------------------------------------------------------------- readout
 
 
@@ -301,25 +350,3 @@ def traceback_scan_words(nl_rows, up_rows, start_i, start_b) -> torch.Tensor:
         toks[r - 1] = torch.where(active, (d | (upv << 7)) & 0xFF, 0).to(torch.uint8)
         b = torch.where(active, pos + upv, b)
     return toks.t()
-
-
-def myers_traceback_device(q, t, q_lens, t_lens, spec: BandSpec = BandSpec()):
-    """The fused path's DP half: Myers kernel with in-kernel backpointer
-    classification (emit_tb) + word-level readout. Returns (readout dict,
-    row-major nonleft words, row-major isup words) for
-    `align_device.align_traceback_rows` — nothing of size [N, B, W] is
-    ever materialised.
-
-    Exactness (kept from `align_myers_pallas.py:myers_traceback_device`): the
-    in-kernel (nonleft, isup) bits equal the int32 kernel's op classification
-    on every cell a traceback can visit — visited cells satisfy
-    1 <= i <= start_i <= qlen and the prefix-max a visited cell reads only
-    covers lanes with 0 <= j' <= j <= tlen (j is non-increasing along the
-    walk), where the pure-bitvector recurrence is exact; the j == 0 column is
-    forced UP (provably its classification in the masked DP), so the j < 0
-    sentinel region can never capture a run. Matches edlib's traceback over
-    its own P/M blocks (`src/edlib/src/edlib.cpp`, obtainAlignmentTraceback)
-    rather than re-deriving cell scores."""
-    P, M, nl, up = _myers_rows_rowmajor(q, t, spec, emit_tb=True)
-    res = myers_word_readout(P.permute(1, 0, 2), M.permute(1, 0, 2), q_lens, t_lens, spec)
-    return res, nl, up

@@ -12,8 +12,8 @@ from collections import Counter
 
 import numpy as np
 
-from hairsplitter_tpu.constants import GAP, PAD, encode_seq
-from hairsplitter_tpu.pipeline.pileup import alignment_cells_full, orient_read
+from ..constants import GAP, PAD, encode_seq
+from ..pipeline.pileup import alignment_cells_full, orient_read
 
 _ALPHABET_BYTES = np.frombuffer(b"ACGT-N", dtype=np.uint8)
 

@@ -1,31 +1,103 @@
 """racon-equivalent windowed POA polish, on the port's mapper.
 
-Port of `polish_poa` and `polish_poa_multi` of `hairsplitter_tpu/ops/poa.py`,
-whose remap rounds go through the port's `map_reads`. The native POA and
-the window / pin helpers are reused from the JAX package's module, which
-loads without JAX.
+Counterpart of `hairsplitter_tpu/ops/poa.py`: `polish_poa` and
+`polish_poa_multi` run their remap rounds through the port's `map_reads`;
+the native POA entry points and the window / pin helpers (`poa_available`,
+`poa_consensus_codes`, `_window_cuts`, `_pin_anchors`, the POA_* scores) are
+copies of that module's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from hairsplitter_tpu import native
-from hairsplitter_tpu.constants import decode_seq, encode_seq
-from hairsplitter_tpu.ops.poa import (
-    MIN_FRAG_FRACTION,
-    POA_GAP,
-    POA_MATCH,
-    POA_MISMATCH,
-    _pin_anchors,
-    _window_cuts,
-    poa_available,
-    poa_consensus_codes,
-)
-from hairsplitter_tpu.pipeline.pileup import orient_read
-
+from .. import native
+from ..constants import decode_seq, encode_seq
 from ..core.mapping import MapConfig, map_reads
+from ..io.cigar import expand_cigar
+from ..pipeline.pileup import orient_read
 from .consensus import polish_iterative
+
+
+# racon CLI defaults: --match 3 --mismatch -5 --gap -4
+POA_MATCH, POA_MISMATCH, POA_GAP = 3, -5, -4
+# racon drops window fragments shorter than 2% of the window
+MIN_FRAG_FRACTION = 0.02
+
+
+def poa_available() -> bool:
+    return native.get_lib() is not None
+
+
+def poa_consensus_codes(layers: list[np.ndarray], min_cov: int = 0) -> np.ndarray | None:
+    """POA consensus over int8 code layers (first = backbone window)."""
+    return native.poa_consensus(layers, POA_MATCH, POA_MISMATCH, POA_GAP, min_cov)
+
+
+def _window_cuts(aln, oriented_len: int, window: int, L: int):
+    """Query cut positions (oriented coords) of this alignment at every
+    window boundary it crosses. Returns (w_first, cuts) where cuts[i] is the
+    cut at boundary (w_first + i) * window, including both fragment ends."""
+    exp = expand_cigar(aln.cigar_ops, aln.cigar_lens)
+    consumes_q = exp != 3  # '=','X','I'
+    consumes_t = exp != 2  # '=','X','D'
+    q0 = aln.q_start if aln.strand == 1 else oriented_len - aln.q_end
+    qpos = q0 + np.cumsum(consumes_q) - consumes_q
+    tpos = aln.t_start + np.cumsum(consumes_t) - consumes_t
+    tpos_t = tpos[consumes_t]
+    qpos_t = qpos[consumes_t]
+    w_first = aln.t_start // window
+    w_last = max(w_first, (aln.t_end - 1) // window)
+    bounds = np.arange(w_first, w_last + 2) * window
+    bounds[0] = max(bounds[0], aln.t_start)
+    bounds[-1] = min(bounds[-1], aln.t_end)
+    idx = np.searchsorted(tpos_t, bounds, side="left")
+    cuts = np.where(
+        idx < tpos_t.size, qpos_t[np.clip(idx, 0, max(0, tpos_t.size - 1))], q0 + (aln.q_end - aln.q_start)
+    )
+    cuts[0] = q0
+    cuts[-1] = q0 + (aln.q_end - aln.q_start)
+    return w_first, cuts
+
+
+def _pin_anchors(aln, read_len: int, t_off: int, t_len_old: int, new_len: int, step: int = 192):
+    """Sample exact (q, t) match pairs from a previous-round alignment every
+    ~step target bases and rescale t from the old target's frame
+    [t_off, t_off + t_len_old) onto the new draft of length new_len.
+
+    Feeds `map_reads(pinned=...)` so polish remap rounds skip re-seeding
+    (racon re-maps each round, but the read's placement on the draft is the
+    placement it already had). The rescale drift between adjacent exact
+    anchors is smooth and absorbed by the DP band; window cuts partition
+    each read exactly, so a shared cut-position shift cannot corrupt the
+    POA consensus. Returns (q_anchors, t_anchors) in oriented-read coords
+    or None when fewer than two usable anchors remain."""
+    exp = expand_cigar(aln.cigar_ops, aln.cigar_lens)
+    consumes_q = exp != 3
+    consumes_t = exp != 2
+    q0 = aln.q_start if aln.strand == 1 else (read_len - aln.q_end)
+    qpos = q0 + np.cumsum(consumes_q) - consumes_q
+    tpos = aln.t_start + np.cumsum(consumes_t) - consumes_t
+    m = np.nonzero(exp == 0)[0]  # '=' — exact pairs only
+    if m.size < 2:
+        return None
+    pm, qm = tpos[m], qpos[m]
+    inside = (pm >= t_off) & (pm < t_off + t_len_old)
+    pm, qm = pm[inside], qm[inside]
+    if pm.size < 2:
+        return None
+    grid = np.arange(int(pm[0]), int(pm[-1]) + step, step)
+    sel = np.unique(
+        np.concatenate([np.clip(np.searchsorted(pm, grid), 0, pm.size - 1), [pm.size - 1]])
+    )
+    scale = new_len / float(t_len_old)
+    ta = np.clip(np.rint((pm[sel] - t_off) * scale), 0, new_len - 1).astype(np.int64)
+    qa = qm[sel].astype(np.int64)
+    keep = np.concatenate([[True], ta[1:] > ta[:-1]])
+    qa, ta = qa[keep], ta[keep]
+    if qa.size < 2:
+        return None
+    return qa, ta
 
 
 def polish_poa(

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from hairsplitter_tpu.constants import GAP, N_TRIMERS, TRIMER_ABSENT
+from ..constants import GAP, N_TRIMERS, TRIMER_ABSENT
 
 # int32 flat-index budget of one bincount pass (elements of the pileup)
 _STATS_CHUNK_CELLS = 1 << 27

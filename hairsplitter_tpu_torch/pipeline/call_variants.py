@@ -27,11 +27,11 @@ import numpy as np
 
 import torch
 
-from hairsplitter_tpu import native as _native
-from hairsplitter_tpu.constants import GAP, TRIMER_ABSENT, encode_seq
-from hairsplitter_tpu.core.datatypes import Alignment
-from hairsplitter_tpu.pipeline.pileup import WINDOW, build_window_blocks, orient_read
-from hairsplitter_tpu.utils.shapes import pow2_bucket
+from .. import native as _native
+from ..constants import GAP, TRIMER_ABSENT, encode_seq
+from ..core.datatypes import Alignment
+from ..pipeline.pileup import WINDOW, build_window_blocks, orient_read
+from ..utils.shapes import pow2_bucket
 
 from ..ops.cluster import cw_numpy
 from ..ops.variants import (

@@ -21,17 +21,15 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from hairsplitter_tpu.constants import decode_seq, encode_seq
-from hairsplitter_tpu.core.datatypes import Alignment
-from hairsplitter_tpu.io.gfa import AssemblyGraph, Link
-from hairsplitter_tpu.ops.triage import check_backbone
-from hairsplitter_tpu.pipeline.pileup import alignment_cells_full, orient_read
-from hairsplitter_tpu.pipeline.unzip import DUMMY
-
+from ..constants import decode_seq, encode_seq
+from ..core.datatypes import Alignment
+from ..io.gfa import AssemblyGraph, Link
 from ..ops.consensus import consensus_from_cells, polish_iterative
 from ..ops.poa import polish_poa_multi
-from ..ops.triage import select_backbone
+from ..ops.triage import check_backbone, select_backbone
+from .pileup import alignment_cells_full, orient_read
 from .separate_reads import ContigGroups
+from .unzip import DUMMY
 
 
 @dataclass

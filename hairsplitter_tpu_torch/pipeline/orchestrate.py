@@ -29,16 +29,18 @@ import numpy as np
 
 import torch
 
-from hairsplitter_tpu.core.seeding import MinimizerIndex
-from hairsplitter_tpu.constants import encode_seq
-from hairsplitter_tpu.io.fasta import (
+from ..constants import encode_seq
+from ..core.mapping import MapConfig, map_reads
+from ..core.seeding import MinimizerIndex
+from ..io.col_gro import read_col, read_gro, write_col, write_gro
+from ..io.fasta import (
     LazyReadSeqs,
     ReadStore,
     filter_fastq_by_quality,
     read_fasta,
     write_fasta,
 )
-from hairsplitter_tpu.io.gfa import (
+from ..io.gfa import (
     bluntify_graph,
     cut_assembly,
     fasta_to_gfa,
@@ -46,12 +48,8 @@ from hairsplitter_tpu.io.gfa import (
     parse_gfa,
     write_gfa,
 )
-from hairsplitter_tpu.io.sam import parse_sam, write_sam
-from hairsplitter_tpu.ops.poa import poa_available
-from hairsplitter_tpu.pipeline.multiplicity import determine_multiplicity, write_ploidy
-
-from ..core.mapping import MapConfig, map_reads
-from ..io.col_gro import read_col, read_gro, write_col, write_gro
+from ..io.sam import parse_sam, write_sam
+from ..ops.poa import poa_available
 from .call_variants import (
     ContigVariants,
     VariantCallConfig,
@@ -59,6 +57,7 @@ from .call_variants import (
     finish_preps,
     prepare_contig_host,
 )
+from .multiplicity import determine_multiplicity, write_ploidy
 from .new_contigs import create_new_contigs, write_gaf
 from .separate_reads import ContigGroups, SeparateConfig, separate_reads_for_contig
 from .unzip import unzip

@@ -28,8 +28,8 @@ import numpy as np
 
 import torch
 
-from hairsplitter_tpu import native
-from hairsplitter_tpu.utils.shapes import pow2_bucket
+from .. import native
+from ..utils.shapes import pow2_bucket
 
 from ..ops.cluster import cw_numpy, sims_diffs_packed
 from ..ops.phase import phase_windows, phase_windows_sub

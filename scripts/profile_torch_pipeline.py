@@ -6,8 +6,8 @@ strains, 30x, 10% error, seed 7) three times in one process:
   2. under torch.profiler (CPU + CUDA): device time by kernel, device busy
      time (device-side events only: kernels, copies, memsets) and the
      device's idle share of the run's wall time;
-  3. under cProfile: host functions by cumulative and own time, and
-     `traceback_scan_words`' share of `map_reads`.
+  3. under cProfile: host functions by cumulative and own time, and the
+     fused call's (`run_jobs`) share of `map_reads`.
 Prints the tables, and writes them to OUT_DIR/profile.txt when OUT_DIR is given.
 
 Usage (repo root, on a machine with a CUDA GPU):
@@ -68,10 +68,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="hs_prof_") as root:
         asm, reads, _, _ = build_dataset(root)
 
-        am.myers_rows.launches = 0
+        am.myers_fused_cuda.launches = 0
         wall = _run(cli, asm, reads, os.path.join(root, "warm"))
         stats = json.load(open(os.path.join(root, "warm", "stage_stats.json")))
-        emit(f"warm run: {wall:.3f} s wall, Myers launches {am.myers_rows.launches}")
+        emit(f"warm run: {wall:.3f} s wall, fused Myers launches {am.myers_fused_cuda.launches}")
         for stage, entry in stats.items():
             emit(f"  {stage:20s} {entry['seconds']:8.3f} s")
 
@@ -87,6 +87,7 @@ def main() -> int:
         busy_us = sum(e.self_device_time_total for e in events)
         emit(f"profiled run: {pwall:.3f} s wall; device busy {busy_us / 1e6:.3f} s; "
              f"device idle share {1 - busy_us / 1e6 / pwall:.4f}")
+        emit(f"  device activities: {sum(e.count for e in events)} (kernels, copies, memsets)")
         emit("  device time by kernel (ms; launches):")
         for e in events[:25]:
             emit(f"    {e.self_device_time_total / 1e3:10.3f}  {e.count:8d}  {e.key[:90]}")
@@ -97,9 +98,11 @@ def main() -> int:
         cp.disable()
         emit(f"cProfile run: {cwall:.3f} s wall")
         cum = {f[2]: v[3] for f, v in pstats.Stats(cp).stats.items()}
-        tb, mr = cum.get("traceback_scan_words", 0.0), cum.get("map_reads", 0.0)
-        emit(f"  traceback_scan_words {tb:.3f} s of map_reads {mr:.3f} s "
-             f"(share {tb / max(mr, 1e-9):.4f}, cumulative host time)")
+        rj, mr = cum.get("run_jobs", 0.0), cum.get("map_reads", 0.0)
+        emit(f"  run_jobs (pack, copies, fused call, host decode) {rj:.3f} s, of which "
+             f"myers_fused_cuda {cum.get('myers_fused_cuda', 0.0):.3f} s and expand_rows_host "
+             f"{cum.get('expand_rows_host', 0.0):.3f} s, of map_reads {mr:.3f} s "
+             f"(share {rj / max(mr, 1e-9):.4f}, cumulative host time)")
         for key in ("cumulative", "tottime"):
             buf = io.StringIO()
             pstats.Stats(cp, stream=buf).sort_stats(key).print_stats(30)

@@ -1,5 +1,6 @@
-"""On-card checks of the PyTorch port: the CUDA kernels (K1 Myers, K2 int32
-banded DP) against their plain PyTorch versions, and the fused call and
+"""On-card checks of the PyTorch port: the CUDA kernels (K1 Myers in its
+check mode and its fused main-path mode, K2 int32 banded DP) against their
+plain PyTorch versions, and the fused call and
 `map_reads` on the GPU against the same functions on the CPU, for both DP
 kernels. Every test is marked `cuda` and skips without a GPU (the kernels
 have no CPU mode).
@@ -13,13 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import random_jobs
-from hairsplitter_tpu.utils.sim import make_haplotypes, simulate_reads
+from chip_smoke import MODE_PATTERNS, edge_jobs, mode_pattern, random_jobs
+from hairsplitter_tpu_torch.utils.sim import make_haplotypes, simulate_reads
 from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
 from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
 from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
-from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows
+from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, myers_fused_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +53,36 @@ def test_kernel_equals_plain_version(cuda, n):
         assert torch.equal(g, r)
     pm = am.myers_rows(qd, td, SPEC, emit_tb=False)
     assert len(pm) == 2 and torch.equal(pm[0], got[0]) and torch.equal(pm[1], got[1])
+
+
+@pytest.mark.parametrize("pattern", MODE_PATTERNS)
+@pytest.mark.parametrize("jobs", ["edge", 1, 33, 4096])
+def test_fused_kernel_equals_plain_composition(cuda, jobs, pattern):
+    """K1's main-path mode against myers_rows_torch -> myers_word_readout ->
+    readout_device -> traceback_scan_words, all on the card, byte for byte;
+    one call is exactly one launch."""
+    q, ql, t, tl = edge_jobs(SPEC) if jobs == "edge" else _jobs(jobs, jobs)
+    n = q.shape[0]
+    arrays = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl, mode_pattern(pattern, n))]
+    before, rows_before = am.myers_fused_cuda.launches, am.myers_rows.launches
+    got = align_traceback_rows(*arrays, SPEC, "myers")
+    torch.cuda.synchronize()
+    assert am.myers_fused_cuda.launches == before + 1
+    assert am.myers_rows.launches == rows_before  # the check-mode kernel is not on this path
+    ref = myers_fused_plain(*arrays, SPEC)
+    assert got.dtype == torch.uint8 and got.shape == (n, 16 + SPEC.chunk)
+    assert torch.equal(got, ref), (got != ref).any(dim=1).nonzero()[:8, 0].tolist()
+
+
+def test_fused_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, ql, t, tl = (torch.from_numpy(x).to(cuda) for x in _jobs(5, 64))
+    modes = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        am.myers_fused_cuda(q, ql.to(torch.int64), t, tl, modes, SPEC)
+    with pytest.raises(ValueError):
+        am.myers_fused_cuda(q[:, :250], ql, t, tl, modes, SPEC)  # not contiguous, not a multiple of 16
+    with pytest.raises(ValueError):
+        am.myers_fused_cuda(q, ql, t, tl, modes, BandSpec(chunk=256, band=64))
 
 
 @pytest.mark.parametrize("n", [1, 33, 4096])

@@ -1,0 +1,104 @@
+"""The port stands alone: no file of `hairsplitter_tpu_torch`, nor the scripts
+that drive it on a machine without JAX, imports `jax` or anything of the JAX
+package `hairsplitter_tpu`, at load time or lazily; and the port's CLI runs to
+the end in a process where both are blocked."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from hairsplitter_tpu_torch.io.fasta import write_fasta
+from hairsplitter_tpu_torch.utils import sim
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "hairsplitter_tpu")
+
+PORT_FILES = sorted(
+    os.path.relpath(p, REPO)
+    for p in glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", "**", "*.py"), recursive=True)
+) + ["chip_smoke.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
+     "scripts/myers_fused_variants.py"]
+
+
+def _imported_roots(path: str) -> set[tuple[str, int]]:
+    """(top-level package, line) of every absolute import in the file, at any depth."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), filename=path)
+    found = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            found.update((alias.name.split(".")[0], node.lineno) for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            found.add((node.module.split(".")[0], node.lineno))
+    return found
+
+
+def test_the_port_has_files_to_check():
+    assert len(PORT_FILES) > 30
+    assert "hairsplitter_tpu_torch/native.py" in PORT_FILES
+    assert "hairsplitter_tpu_torch/utils/sim.py" in PORT_FILES
+
+
+@pytest.mark.parametrize("rel", PORT_FILES)
+def test_file_imports_nothing_of_jax_or_the_jax_package(rel):
+    bad = sorted((root, line) for root, line in _imported_roots(os.path.join(REPO, rel)) if root in FORBIDDEN)
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_the_import_walker_sees_nested_and_dotted_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text(
+        "import os\n"
+        "def f():\n"
+        "    from hairsplitter_tpu.io import gfa\n"
+        "    import jax.numpy as jnp\n"
+        "from . import sibling\n"
+        "from hairsplitter_tpu_torch import native\n"
+    )
+    roots = {root for root, _ in _imported_roots(str(src))}
+    assert roots == {"os", "hairsplitter_tpu", "jax", "hairsplitter_tpu_torch"}
+
+
+_BLOCKED = """
+import sys
+
+BLOCKED = ("jax", "jaxlib", "hairsplitter_tpu")
+
+class _Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked in this process: " + name)
+        return None
+
+sys.meta_path.insert(0, _Block())
+from hairsplitter_tpu_torch.cli import main
+
+rc = main(sys.argv[1:])
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+sys.exit(rc)
+"""
+
+
+def test_cli_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    rng = np.random.default_rng(2)
+    haps = sim.make_haplotypes(8000, 2, 0.01, rng)
+    reads = sim.simulate_reads(haps, coverage=10, read_len=3000, rng=rng,
+                               sub_rate=0.03, ins_rate=0.01, del_rate=0.01)
+    asm, reads_path = str(tmp_path / "asm.fasta"), str(tmp_path / "reads.fasta")
+    write_fasta(asm, {"asm": haps[0]})
+    sim.write_sim_fasta(reads_path, reads)
+    out = tmp_path / "out"
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, "-i", asm, "-f", reads_path, "-o", str(out), "--device", "cpu"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert (out / "hairsplitter_final_assembly.gfa").stat().st_size > 0
+    assert (out / "stage_stats.json").exists()
