@@ -19,20 +19,24 @@ Phases (each prints its result; any failure raises and exits non-zero):
      K1's main-path mode, the fused kernel `myers_fused_cuda`, must equal
      the plain composition `myers_fused_plain` byte for byte on those jobs
      and on hand-made edge jobs, each with alternating, all-global and
-     all-extension modes; K2, the int32 banded-DP kernel, must equal
-     `banded_align_batch_torch` in all four outputs in both modes (uint8
-     bp, int16 enc), bit for bit; all are timed with CUDA events and held
-     against their bounds. At 32,768 jobs the fused mapping call with K2
-     (kernel="pallas") must equal the call with K1 byte for byte, one
-     K1 call must be exactly one device launch (torch.profiler), and the
-     calls are timed, K1's also with its host copies;
+     all-extension modes; K2's check mode, `banded_align_batch_dp`, must
+     equal `banded_align_batch_torch` in all four outputs in both plane
+     modes (uint8 bp, int16 enc), bit for bit; K2's main-path mode, the
+     fused kernel `banded_fused_cuda`, must equal the plain composition
+     `banded_fused_plain` byte for byte on the same jobs and mode patterns
+     as K1's; all are timed with CUDA events and held against their bounds.
+     At 32,768 jobs the fused mapping call with K2 (kernel="pallas") must
+     equal the call with K1 byte for byte, one call of either must be
+     exactly one device launch of its fused kernel (torch.profiler), and
+     the calls are timed, K1's also with its host copies;
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
      (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
      counter must be > 0 and the check-mode kernel's must stay 0, the final
      GFA must exist and every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
-     `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; K2's launch
-     counter must be > 0 and K1's must not move during stage 2, the mapping
+     `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; the fused
+     K2 kernel's launch counter must be > 0, K2's check-mode kernel must not
+     launch at all, and K1's counter must not move during stage 2, the mapping
      that `PipelineConfig.map` configures (the stage-5 and stage-6 remaps
      map with the default MapConfig, K1, in the JAX package too); the SAM
      and the final GFA must be byte-identical to phase 4's and every
@@ -164,12 +168,19 @@ def build_dataset(root: str):
 # the card's maximum SM clock as nvidia-smi reports it)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations the kernels' functions need, counted from their sources
-# as three-input logic ops, shifts, adds and selects: one Myers row over the
-# 4-word band with the backpointer classes and the window slide (150), the
-# same plus the readout's running quantities (160), one step of the walk
-# (mask, clz, token: 30), one int32 DP cell (compare, two adds, two minima,
-# two selects, the run code: 8)
+# integer operations the kernels' functions need (not what a design spends),
+# counted as three-input logic ops, shifts, adds and selects: one Myers row
+# over the 4-word band with the backpointer classes and the window slide
+# (150), the same plus the readout's running quantities (160); one step of a
+# traceback walk, which in either kernel finds the highest non-LEFT bit at or
+# below b in a 128-bit row, takes its UP bit and forms the token (mask, clz,
+# token: 30); one int32 DP cell (code compare, two adds, two minima, two
+# selects, and the run code in the check mode or the two class compares in the
+# fused mode: 8). The fused int32 kernel spends more than these on both: about
+# 10.5 instructions a cell (its five scan minima and the code compare are
+# shared by a lane's four cells) and, because a row's classes lie across the
+# 32 lanes, 8 instructions in every lane plus 14 for each walked row, 270.
+# Its bound is counted with the function's 8 and 30 all the same.
 OPS_MYERS_ROW = 150
 OPS_FUSED_ROW = 160
 OPS_WALK_ROW = 30
@@ -220,7 +231,7 @@ def main() -> int:
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
     from hairsplitter_tpu_torch.ops.align_device import (
-        align_traceback_rows, myers_fused_plain, readout_device, traceback_scan)
+        align_traceback_rows, banded_fused_plain, myers_fused_plain, readout_device, traceback_scan)
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -262,25 +273,31 @@ def main() -> int:
     print(f"[kernel] myers_rows == myers_rows_torch on {N_CHECK} jobs x B={B} (4 streams, bit for bit); "
           f"kernel {k_ms:.4f} ms, plain {p_ms:.2f} ms", flush=True)
 
+    def check_fused(tag, kernel_fn, plain_fn):
+        """A fused kernel against its plain composition, byte for byte, on the
+        edge jobs and the check jobs with every mode pattern."""
+        err = 0
+        for label, jobs in (("edge", edge_jobs(spec)), (str(N_CHECK), check_jobs)):
+            n = jobs[0].shape[0]
+            arrays = [torch.from_numpy(x).to(dev) for x in jobs]
+            for pattern in MODE_PATTERNS:
+                md = torch.from_numpy(mode_pattern(pattern, n)).to(dev)
+                got = kernel_fn(*arrays, md, spec)
+                torch.cuda.synchronize()
+                ref = plain_fn(*arrays, md, spec)
+                assert got.dtype == ref.dtype == torch.uint8 and got.shape == ref.shape == (n, 16 + B)
+                err = max(err, int((got.to(torch.int16) - ref.to(torch.int16)).abs().max()))
+                assert torch.equal(got, ref), (
+                    f"{kernel_fn.__name__} differs from {plain_fn.__name__} on the {label} jobs, "
+                    f"{pattern} modes: rows {(got != ref).any(dim=1).nonzero()[:8, 0].tolist()}")
+            print(f"[kernel {tag}] {kernel_fn.__name__} == {plain_fn.__name__} on the {label} jobs "
+                  f"({n} x B={B}; modes {', '.join(MODE_PATTERNS)}; byte for byte)", flush=True)
+        return err
+
     # K1's main-path mode: the fused kernel against the plain composition
     # (myers_rows_torch -> myers_word_readout -> readout_device ->
-    # traceback_scan_words), byte for byte
-    fused_err = 0
-    for label, jobs in (("edge", edge_jobs(spec)), (str(N_CHECK), check_jobs)):
-        n = jobs[0].shape[0]
-        arrays = [torch.from_numpy(x).to(dev) for x in jobs]
-        for pattern in MODE_PATTERNS:
-            md = torch.from_numpy(mode_pattern(pattern, n)).to(dev)
-            got = am.myers_fused_cuda(*arrays, md, spec)
-            torch.cuda.synchronize()
-            ref = myers_fused_plain(*arrays, md, spec)
-            assert got.dtype == ref.dtype == torch.uint8 and got.shape == ref.shape == (n, 16 + B)
-            fused_err = max(fused_err, int((got.to(torch.int16) - ref.to(torch.int16)).abs().max()))
-            assert torch.equal(got, ref), (
-                f"the fused Myers kernel differs from the plain composition on the {label} jobs, "
-                f"{pattern} modes: rows {(got != ref).any(dim=1).nonzero()[:8, 0].tolist()}")
-        print(f"[kernel K1 fused] myers_fused_cuda == myers_fused_plain on the {label} jobs ({n} x B={B}; "
-              f"modes {', '.join(MODE_PATTERNS)}; byte for byte)", flush=True)
+    # traceback_scan_words)
+    fused_err = check_fused("K1 fused", am.myers_fused_cuda, myers_fused_plain)
     modes_check = torch.from_numpy(mode_pattern("alternating", N_CHECK)).to(dev)
     fused_check = [qd, qld, td, tld, modes_check]
     f_ms = cuda_ms(lambda: am.myers_fused_cuda(*fused_check, spec), 50)
@@ -306,12 +323,19 @@ def main() -> int:
         k2_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=emit_enc), 20)
         k2_plain_ms[mode] = cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=emit_enc), 2)
         del got, ref
-    print(f"[kernel K2] banded_align_batch_dp == banded_align_batch_torch on {N_CHECK} jobs x B={B} "
+    print(f"[kernel K2 check mode] banded_align_batch_dp == banded_align_batch_torch on {N_CHECK} jobs x B={B} "
           f"(bp, enc, row_at_q, colmin_val, colmin_i; bit for bit); "
           + ", ".join(f"{m}: kernel {k2_ms[m]:.4f} ms, plain {k2_plain_ms[m]:.2f} ms" for m in k2_ms),
           flush=True)
 
-    # bounds of the three kernels on the check jobs: the larger of the bytes
+    # K2's main-path mode: the fused kernel against the plain composition
+    # (banded_align_batch_torch with the run encoding -> readout_device ->
+    # traceback_scan)
+    k2f_err = check_fused("K2 fused", ad.banded_fused_cuda, banded_fused_plain)
+    k2f_ms = cuda_ms(lambda: ad.banded_fused_cuda(*fused_check, spec), 50)
+    k2fp_ms = cuda_ms(lambda: banded_fused_plain(*fused_check, spec), 1)
+
+    # bounds of the four kernels on the check jobs: the larger of the bytes
     # each function must move (inputs read once, outputs written once) over
     # the memory rate, and its integer operations over the int32 rate
     in_bytes = N_CHECK * (B + T)
@@ -321,12 +345,18 @@ def main() -> int:
                                 rows_fwd * OPS_FUSED_ROW + rows_bwd * OPS_WALK_ROW),
         "banded_dp": bound_ms(in_bytes + 8 * N_CHECK + N_CHECK * B * 128 * 2 + N_CHECK * (128 + 2) * 4,
                               N_CHECK * B * 128 * OPS_DP_CELL),
+        "banded_fused": bound_ms(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
+                                 rows_fwd * 128 * OPS_DP_CELL + rows_bwd * OPS_WALK_ROW),
     }
     scratch_ms = (rows_fwd + rows_bwd) * 32 / HBM_BYTES_PER_S * 1e3
     print(f"[kernel K1 fused] {N_CHECK} jobs (modes alternating): kernel {f_ms:.4f} ms, plain composition "
           f"{fp_ms:.2f} ms; bound {bounds['myers_fused'][0]:.4f} ms by {bounds['myers_fused'][1]} "
           f"({rows_fwd} forward rows, {rows_bwd} walked rows); its scratch through device memory "
           f"(32 B written per forward row, 32 B read per walked row) would take {scratch_ms:.4f} ms", flush=True)
+
+    print(f"[kernel K2 fused] {N_CHECK} jobs (modes alternating): kernel {k2f_ms:.4f} ms, plain composition "
+          f"{k2fp_ms:.2f} ms; bound {bounds['banded_fused'][0]:.4f} ms by {bounds['banded_fused'][1]} "
+          f"({rows_fwd} forward rows x 128 cells, {rows_bwd} walked rows)", flush=True)
 
     # the fused mapping call at ~stage-2 size
     q, qlens, t, tlens = random_jobs(np.random.default_rng(1), N_FUSED, spec)
@@ -339,23 +369,28 @@ def main() -> int:
     fused_k1 = align_traceback_rows(qd, qld, td, tld, modes, spec, "myers")
     torch.cuda.synchronize()
     fused_peak = torch.cuda.max_memory_allocated() - mem0
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
     fused_k2 = align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas")
+    torch.cuda.synchronize()
+    fused_k2_peak = torch.cuda.max_memory_allocated() - mem0
     assert torch.equal(fused_k2, fused_k1), "the fused buffer with K2 differs from the buffer with K1"
-    print("[fused] K2 buffer == K1 buffer (one fused kernel) on %d jobs (byte for byte)" % N_FUSED, flush=True)
+    print("[fused] K2 buffer == K1 buffer (one fused kernel each) on %d jobs (byte for byte)" % N_FUSED, flush=True)
     meta = fused_k1[:, :16].contiguous().view(torch.int32)
     rows_fwd32, rows_bwd32 = int(qld.clamp(0, B).sum()), int(meta[:, 2].sum())
     del fused_k1, fused_k2, meta
 
     # device launches inside one fused call, by the profiler
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        align_traceback_rows(qd, qld, td, tld, modes, spec, "myers")
-        torch.cuda.synchronize()
-    on_device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    print(f"[fused] device activities inside one align_traceback_rows(kernel='myers') call "
-          f"(torch.profiler): {len(on_device)}: {on_device}", flush=True)
-    assert len(on_device) == 1 and "myers_fused" in on_device[0], \
-        "the fused call must be one launch of the fused kernel and nothing else"
+    for kernel, kernel_name in (("myers", "myers_fused"), ("pallas", "banded_fused")):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            align_traceback_rows(qd, qld, td, tld, modes, spec, kernel)
+            torch.cuda.synchronize()
+        on_device = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"[fused] device activities inside one align_traceback_rows(kernel='{kernel}') call "
+              f"(torch.profiler): {len(on_device)}: {on_device}", flush=True)
+        assert len(on_device) == 1 and kernel_name in on_device[0], \
+            "the fused call must be one launch of the fused kernel and nothing else"
 
     def call_as_run_jobs():
         """The copies and the call as `core/mapping.py:run_jobs` makes them."""
@@ -384,20 +419,36 @@ def main() -> int:
     print(f"[fused] occupancy of the fused kernel at B={B}, T={T}: {occ} blocks of 32 threads per SM "
           f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
 
+    k2_parts = {
+        "kernel": cuda_ms(lambda: ad.banded_fused_cuda(qd, qld, td, tld, modes, spec), 20),
+        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 20),
+        "plain_composition": cuda_ms(lambda: banded_fused_plain(qd, qld, td, tld, modes, spec), 1),
+    }
+    b32_k2 = bound_ms(N_FUSED * (B + T + 12 + 16 + B),
+                      rows_fwd32 * 128 * OPS_DP_CELL + rows_bwd32 * OPS_WALK_ROW)
+    print("[fused] K2 at %d jobs: %s; bound %.4f ms by %s (%d forward rows, %d walked rows); "
+          "device memory of one call %.1f MB" % (
+              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in k2_parts.items()), b32_k2[0], b32_k2[1],
+              rows_fwd32, rows_bwd32, fused_k2_peak / 1e6), flush=True)
+    occ = _build.load_kernels().hs_banded_fused_occupancy(B)
+    print(f"[fused] occupancy of the fused K2 kernel at B={B}: {occ} blocks of one warp per SM, "
+          f"{_build.load_kernels().hs_banded_fused_smem_bytes(B)} B of shared memory each "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)", flush=True)
+
+    # the parts of the plain composition, with the check-mode kernel in the DP's place
     res = ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True)
     cost, si, sb, clip = readout_device(res, qld, tld, modes, spec)
-    k2_parts = {
-        "kernel": cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True), 10),
+    k2_check_parts = {
+        "check_mode_kernel": cuda_ms(lambda: ad.banded_align_batch_dp(qd, qld, td, tld, spec, emit_enc=True), 10),
         "readout": cuda_ms(lambda: readout_device(res, qld, tld, modes, spec), 5),
-        "traceback_scan": cuda_ms(lambda: traceback_scan(res["enc"], si, sb), 2),
-        "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 2),
-        "plain_dp": cuda_ms(lambda: ad.banded_align_batch_torch(qd, qld, td, tld, spec, emit_enc=True), 1),
+        "traceback_scan": cuda_ms(lambda: traceback_scan(res["enc"], si, sb), 1),
     }
     enc_bytes = res["enc"].numel() * res["enc"].element_size()
-    print("[fused] K2 parts at %d jobs: %s; enc plane %.3f GB, %.3f TB/s (%.1f%% of 3.35 TB/s)" % (
-        N_FUSED, ", ".join(f"{k} {v:.3f} ms" for k, v in k2_parts.items()),
-        enc_bytes / 1e9, enc_bytes / k2_parts["kernel"] / 1e9,
-        100 * enc_bytes / k2_parts["kernel"] / 1e9 / 3.35), flush=True)
+    print("[fused] K2 check mode and the plain walk at %d jobs: %s; enc plane %.3f GB, %.3f TB/s "
+          "(%.1f%% of 3.35 TB/s)" % (
+              N_FUSED, ", ".join(f"{k} {v:.3f} ms" for k, v in k2_check_parts.items()),
+              enc_bytes / 1e9, enc_bytes / k2_check_parts["check_mode_kernel"] / 1e9,
+              100 * enc_bytes / k2_check_parts["check_mode_kernel"] / 1e9 / 3.35), flush=True)
     del res, cost, si, sb, clip
 
     # ---- 4. main path through the CLI
@@ -436,6 +487,7 @@ def main() -> int:
         am.myers_fused_cuda.launches = 0
         am.myers_rows.launches = 0
         ad.banded_align_batch_dp.launches = 0
+        ad.banded_fused_cuda.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
@@ -447,7 +499,8 @@ def main() -> int:
         assert launches > 0, "the main path never launched the fused Myers kernel"
         assert check_mode_launches == 0, "the main path launched K1's check-mode kernel"
         print(f"[main] CLI on cuda: K1 fused launches {launches}, K1 check-mode launches "
-              f"{check_mode_launches}, K2 launches {ad.banded_align_batch_dp.launches}", flush=True)
+              f"{check_mode_launches}, K2 fused launches {ad.banded_fused_cuda.launches}, K2 check-mode "
+              f"launches {ad.banded_align_batch_dp.launches}", flush=True)
         check_run(out, wall, "main")
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
@@ -456,10 +509,10 @@ def main() -> int:
         stage2_map_reads = orchestrate.map_reads
 
         def counted_map_reads(*args, **kwargs):
-            k1, k2 = am.myers_fused_cuda.launches, ad.banded_align_batch_dp.launches
+            k1, k2 = am.myers_fused_cuda.launches, ad.banded_fused_cuda.launches
             alns = stage2_map_reads(*args, **kwargs)
             stage2["k1"] += am.myers_fused_cuda.launches - k1
-            stage2["k2"] += ad.banded_align_batch_dp.launches - k2
+            stage2["k2"] += ad.banded_fused_cuda.launches - k2
             return alns
 
         orchestrate.map_reads = counted_map_reads  # the stage-2 call site
@@ -467,6 +520,7 @@ def main() -> int:
             am.myers_fused_cuda.launches = 0
             am.myers_rows.launches = 0
             ad.banded_align_batch_dp.launches = 0
+            ad.banded_fused_cuda.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             orchestrate.run_pipeline(
@@ -477,14 +531,17 @@ def main() -> int:
             wall = time.perf_counter() - t0
         finally:
             orchestrate.map_reads = stage2_map_reads
-        k2_launches = ad.banded_align_batch_dp.launches
+        k2_launches = ad.banded_fused_cuda.launches
+        k2_check_launches = ad.banded_align_batch_dp.launches
         k1_later = am.myers_fused_cuda.launches
         assert am.myers_rows.launches == 0, "the use_myers=False run launched K1's check-mode kernel"
-        print(f"[main K2] run_pipeline(map=MapConfig(use_myers=False)) on cuda: K2 launches "
-              f"{k2_launches} (stage 2: {stage2['k2']}), K1 launches in stage 2 {stage2['k1']}, "
+        print(f"[main K2] run_pipeline(map=MapConfig(use_myers=False)) on cuda: K2 fused launches "
+              f"{k2_launches} (stage 2: {stage2['k2']}), K2 check-mode launches {k2_check_launches}, "
+              f"K1 launches in stage 2 {stage2['k1']}, "
               f"K1 launches of the stage-5/6 remaps (default MapConfig) {k1_later - stage2['k1']}",
               flush=True)
-        assert k2_launches > 0 and stage2["k2"] > 0, "the use_myers=False path never launched K2"
+        assert k2_launches > 0 and stage2["k2"] > 0, "the use_myers=False path never launched the fused K2 kernel"
+        assert k2_check_launches == 0, "the use_myers=False run launched K2's check-mode kernel"
         assert stage2["k1"] == 0, "K1 launched during the use_myers=False stage-2 mapping"
         for name in ("tmp/reads_on_asm.sam", "hairsplitter_final_assembly.gfa"):
             with open(os.path.join(out, name), "rb") as f1, open(os.path.join(out_k2, name), "rb") as f2:
@@ -502,15 +559,19 @@ def main() -> int:
         }
 
     # times, errors and bounds are the check jobs' (8,192 x B=256); launches
-    # are the main-path runs' (myers_rows is K1's check mode, off the path)
+    # are the main-path runs' (myers_rows and banded_dp are the check modes
+    # of K1 and K2, off the path)
     k1_at = "hairsplitter_tpu/ops/align_myers_pallas.py:50"
+    k2_at = "hairsplitter_tpu/ops/align_pallas.py:50"
     print(json.dumps({"kernels": [
         entry("myers_rows", "hairsplitter_tpu_torch/csrc/myers_rows.cu", k1_at,
               check_mode_launches, max_err, k_ms, p_ms),
         entry("myers_fused", "hairsplitter_tpu_torch/csrc/myers_fused.cu", k1_at,
               launches, fused_err, f_ms, fp_ms),
-        entry("banded_dp", "hairsplitter_tpu_torch/csrc/banded_dp.cu",
-              "hairsplitter_tpu/ops/align_pallas.py:50", k2_launches, k2_err, k2_ms["enc"], k2_plain_ms["enc"]),
+        entry("banded_dp", "hairsplitter_tpu_torch/csrc/banded_dp.cu", k2_at,
+              k2_check_launches, k2_err, k2_ms["enc"], k2_plain_ms["enc"]),
+        entry("banded_fused", "hairsplitter_tpu_torch/csrc/banded_fused.cu", k2_at,
+              k2_launches, k2f_err, k2f_ms, k2fp_ms),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -30,8 +30,8 @@ from ..ops.align_device import align_traceback_rows, expand_rows_host
 
 # jobs per fused call. At B = 256 the fused Myers kernel allocates 0.6 GB for
 # a full call (its walk scratch is 32 B per row and job, plus inputs and the
-# fused buffer); the int32 DP path allocates 4.3 GB (an enc plane of 256 B
-# per row and job)
+# fused buffer); the fused int32 DP kernel keeps its scratch in shared memory
+# and allocates only the fused buffer
 MAX_JOBS_PER_LAUNCH = 1 << 16
 
 
@@ -50,7 +50,7 @@ class MapConfig:
     max_occ: int = 64
     # minimum identity to keep an alignment (minimap2 -M-ish sanity filter)
     max_divergence: float = 0.35
-    # the int32 banded-DP kernel (csrc/banded_dp.cu), when the Myers kernel
+    # the int32 banded-DP kernel (csrc/banded_fused.cu), when the Myers kernel
     # is off or the band is not its 128; False runs the plain DP (any band)
     use_pallas: bool = True
     # the Myers bit-vector kernel (csrc/myers_fused.cu), the default DP at band 128
@@ -153,7 +153,7 @@ def dp_kernel(cfg: MapConfig) -> str:
         return "jnp"
     if band != 128:
         raise ValueError(
-            f"MapConfig(use_pallas=True) runs the int32 banded-DP kernel K2 (csrc/banded_dp.cu), "
+            f"MapConfig(use_pallas=True) runs the int32 banded-DP kernel K2 (csrc/banded_fused.cu), "
             f"which is specialised to band 128 like the JAX package's Pallas kernel; for band "
             f"{band} set MapConfig(use_pallas=False) to run the plain DP"
         )

@@ -14,22 +14,7 @@
 
 #include <cstdint>
 
-#if defined(HS_HOST_EMULATION)
-// Host build of the kernel bodies (g++), used to test their control flow on a
-// machine without a GPU: the CUDA qualifiers vanish and the few intrinsics
-// get portable twins.
-#define __device__
-#define __host__
-#define __forceinline__ inline
-static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, uint32_t s) {
-  return static_cast<uint32_t>(((static_cast<uint64_t>(hi) << 32) | lo) >> (s & 31));
-}
-static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, uint32_t s) {
-  return static_cast<uint32_t>((((static_cast<uint64_t>(hi) << 32) | lo) << (s & 31)) >> 32);
-}
-static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
-static inline int __clz(uint32_t x) { return x ? __builtin_clz(x) : 32; }
-#endif
+#include "host_emulation.cuh"
 
 namespace hs {
 

@@ -58,10 +58,6 @@
 
 #if defined(HS_HOST_EMULATION)
 #include <vector>
-struct uint4 { uint32_t x, y, z, w; };
-static inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) { return {x, y, z, w}; }
-#else
-#include <cuda_runtime.h>
 #endif
 
 #include "myers_common.cuh"

@@ -24,8 +24,8 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu")
-HEADERS = ("myers_common.cuh",)  # included by the sources: part of the digest
+SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu")
+HEADERS = ("host_emulation.cuh", "myers_common.cuh", "banded_common.cuh")  # included by the sources: part of the digest
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -171,5 +171,22 @@ def load_kernels() -> ctypes.CDLL:
             ctypes.c_void_p,  # colmin_i int32 [N]
             ctypes.c_void_p,  # cudaStream_t
         ]
+        lib.hs_banded_fused.restype = ctypes.c_int
+        lib.hs_banded_fused.argtypes = [
+            ctypes.c_void_p,  # q int8 [N, B]
+            ctypes.c_void_p,  # t int8 [N, T]
+            ctypes.c_void_p,  # q_lens int32 [N]
+            ctypes.c_void_p,  # t_lens int32 [N]
+            ctypes.c_void_p,  # modes int32 [N]
+            ctypes.c_int,  # N
+            ctypes.c_int,  # B
+            ctypes.c_int,  # T
+            ctypes.c_void_p,  # out uint8 [N, 16 + B]
+            ctypes.c_void_p,  # cudaStream_t
+        ]
+        lib.hs_banded_fused_smem_bytes.restype = ctypes.c_int
+        lib.hs_banded_fused_smem_bytes.argtypes = [ctypes.c_int]  # B
+        lib.hs_banded_fused_occupancy.restype = ctypes.c_int
+        lib.hs_banded_fused_occupancy.argtypes = [ctypes.c_int]  # B
         _lib = lib
     return _lib

@@ -1,7 +1,8 @@
 """The fused mapping call: DP + end-cell readout + row-lockstep traceback in
-one device pass, decoded on host. With the Myers DP (the default) the whole
-call is one CUDA kernel on a GPU (`csrc/myers_fused.cu`); its plain version,
-`myers_fused_plain`, is the same function composed from torch ops.
+one device pass, decoded on host. On a GPU the whole call is one CUDA kernel:
+`csrc/myers_fused.cu` with the Myers DP (the default), `csrc/banded_fused.cu`
+with the int32 banded DP. Their plain versions, `myers_fused_plain` and
+`banded_fused_plain`, are the same functions composed from torch ops.
 
 Counterpart of `hairsplitter_tpu/ops/align_device.py`: `readout_device`
 (:36-65), `traceback_rows_device`, `encode_runs` and `traceback_scan`
@@ -19,7 +20,7 @@ import torch
 from .. import native as _native
 
 from .align import BP_LEFT, BP_UP, INF, TB_D, TB_EQ, TB_I, TB_X, BandSpec
-from .align_dp_cuda import banded_align_batch_dp, banded_align_batch_torch
+from . import align_dp_cuda as _dp  # called through the module, so that a test can wrap its functions
 from .align_myers_cuda import myers_fused_cuda, myers_rows_torch, myers_word_readout, traceback_scan_words
 
 
@@ -130,34 +131,47 @@ def myers_fused_plain(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) 
     return _fused_buffer(cost, clip, start_i, start_b, toks)
 
 
+def banded_fused_plain(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -> torch.Tensor:
+    """Plain PyTorch version of the fused int32 banded-DP kernel
+    (`csrc/banded_fused.cu`), on any device: `banded_align_batch_torch` with
+    the run encoding -> `readout_device` -> `traceback_scan`. It materialises
+    the int16 [N, B, W] plane, which the kernel never does."""
+    if spec.band != _dp.LANES:
+        raise ValueError(f"the int32 banded-DP kernel is specialised to band {_dp.LANES}, got {spec.band}")
+    res = _dp.banded_align_batch_torch(q, q_lens, t, t_lens, spec, emit_enc=True)
+    cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
+    toks = traceback_scan(res["enc"], start_i, start_b)
+    return _fused_buffer(cost, clip, start_i, start_b, toks)
+
+
+_FUSED = {  # kernel -> (CUDA kernel's wrapper, plain version)
+    "myers": (myers_fused_cuda, myers_fused_plain),
+    "pallas": (_dp.banded_fused_cuda, banded_fused_plain),
+}
+
+
 def align_traceback_rows(q, q_lens, t, t_lens, modes, spec: BandSpec, kernel: str = "myers") -> torch.Tensor:
     """One fused pass per batch on q's device: DP, readout and row-lockstep
-    traceback. kernel: "myers" (K1: on a GPU the one fused Myers kernel),
-    "pallas" (the int32 banded-DP kernel K2 emitting the run encoding, then
-    the readout and the walk in torch ops) or "jnp" (the plain DP in torch
-    ops, any band). On a GPU the first two launch their CUDA kernels; CPU
-    tensors take their plain versions. Returns uint8 [N, 16 + B],
+    traceback. kernel: "myers" (K1, the Myers bit-vector DP), "pallas" (K2,
+    the int32 banded DP) or "jnp" (the plain DP in torch ops, any band). With
+    the first two, CUDA tensors launch the one fused CUDA kernel and nothing
+    else, and CPU tensors take its plain version. Returns uint8 [N, 16 + B],
     byte-identical to the JAX package's `align_traceback_rows` with the same
     kernel; decode with `expand_rows_host`."""
-    if kernel == "myers":
+    if kernel in _FUSED:
+        on_cuda, plain = _FUSED[kernel]
         # a CUDA tensor launches the kernel or raises; only a CPU tensor
         # takes the plain composition
         if q.device.type == "cuda":
-            return myers_fused_cuda(q, q_lens, t, t_lens, modes, spec)
+            return on_cuda(q, q_lens, t, t_lens, modes, spec)
         if q.device.type == "cpu":
-            return myers_fused_plain(q, q_lens, t, t_lens, modes, spec)
+            return plain(q, q_lens, t, t_lens, modes, spec)
         raise ValueError(f"unsupported device {q.device}")
-    if kernel == "pallas":
-        res = banded_align_batch_dp(q, q_lens, t, t_lens, spec, emit_enc=True)
-    elif kernel == "jnp":
-        res = banded_align_batch_torch(q, q_lens, t, t_lens, spec)
-    else:
+    if kernel != "jnp":
         raise ValueError(f"kernel must be 'myers', 'pallas' or 'jnp', got {kernel!r}")
+    res = _dp.banded_align_batch_torch(q, q_lens, t, t_lens, spec)
     cost, start_i, start_b, clip = readout_device(res, q_lens, t_lens, modes, spec)
-    if kernel == "pallas":
-        toks = traceback_scan(res["enc"], start_i, start_b)
-    else:
-        toks = traceback_rows_device(res["bp"], start_i, start_b, spec)
+    toks = traceback_rows_device(res["bp"], start_i, start_b, spec)
     return _fused_buffer(cost, clip, start_i, start_b, toks)
 
 

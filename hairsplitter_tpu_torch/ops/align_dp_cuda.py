@@ -1,10 +1,15 @@
-"""Int32 banded edit-distance DP: the CUDA kernel's wrapper and its plain
-PyTorch twin.
+"""Int32 banded edit-distance DP (K2): the wrappers of its two CUDA kernels
+and the plain PyTorch twin of the DP.
 
 Counterpart of `hairsplitter_tpu/ops/align_pallas.py` (the Pallas kernel
 `_dp_kernel`) and of the jnp scan `hairsplitter_tpu/ops/align.py:
 banded_align_batch`, which the JAX package holds bit-identical to each
-other. Both functions here return the JAX dict: `bp` (uint8 [N, B, W]
+other. `banded_fused_cuda` is the main-path mode (`csrc/banded_fused.cu`):
+DP, readout and traceback in one launch, straight to the fused buffer of
+`ops/align_device.py:align_traceback_rows`; its plain version is
+`ops/align_device.py:banded_fused_plain`. `banded_align_batch_dp` is the
+check mode (`csrc/banded_dp.cu`), which emits what the Pallas kernel emits;
+it and its plain twin `banded_align_batch_torch` return the JAX dict: `bp` (uint8 [N, B, W]
 backpointers, 0 diag, 1 up/I, 2 left/D) or, with emit_enc, `enc` (the int16
 traceback run encoding of `align_device.encode_runs`), plus `row_at_q`
 (int32 [N, W], the DP row at i == qlen), `colmin_val` and `colmin_i` (int32
@@ -108,6 +113,14 @@ def _banded_dp_cuda(q, q_lens, t, t_lens, emit_enc: bool) -> dict:
     row_at_q = torch.empty((N, LANES), dtype=torch.int32, device=dev)
     colmin_val = torch.empty((N,), dtype=torch.int32, device=dev)
     colmin_i = torch.empty((N,), dtype=torch.int32, device=dev)
+    out = {
+        ("enc" if emit_enc else "bp"): plane,
+        "row_at_q": row_at_q,
+        "colmin_val": colmin_val,
+        "colmin_i": colmin_i,
+    }
+    if N == 0:  # nothing to launch, and nothing counted
+        return out
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.hs_banded_dp(
@@ -117,17 +130,12 @@ def _banded_dp_cuda(q, q_lens, t, t_lens, emit_enc: bool) -> dict:
     if rc != 0:
         raise RuntimeError(f"hs_banded_dp launch failed with CUDA error {rc}")
     banded_align_batch_dp.launches += 1
-    return {
-        ("enc" if emit_enc else "bp"): plane,
-        "row_at_q": row_at_q,
-        "colmin_val": colmin_val,
-        "colmin_i": colmin_i,
-    }
+    return out
 
 
 def banded_align_batch_dp(q, q_lens, t, t_lens, spec: BandSpec = BandSpec(), emit_enc: bool = False) -> dict:
-    """The int32 banded DP (the K2 wrapper), bit-identical to
-    `banded_align_batch_pallas` of the JAX package. CUDA tensors launch
+    """The int32 banded DP in its check mode, bit-identical to
+    `banded_align_batch_pallas` of the JAX package; off the mapping path. CUDA tensors launch
     `csrc/banded_dp.cu` (counted in `banded_align_batch_dp.launches`); CPU
     tensors take `banded_align_batch_torch`. Like the Pallas kernel, it is
     specialised to band 128. Takes int8 q [N, B] and t [N, T], int32 q_lens
@@ -147,3 +155,57 @@ def banded_align_batch_dp(q, q_lens, t, t_lens, spec: BandSpec = BandSpec(), emi
 
 
 banded_align_batch_dp.launches = 0
+
+
+# shared memory a block may ask for on Hopper (227 KB)
+MAX_BLOCK_SMEM = 232_448
+
+
+def banded_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -> torch.Tensor:
+    """K2's main-path mode: ONE launch of `csrc/banded_fused.cu` from the
+    code tensors to the fused buffer uint8 [N, 16 + B] (int32 cost, clip,
+    start_i, start_b, then one token per query row), byte-identical to
+    `ops/align_device.py:banded_fused_plain`. The backpointer classes the
+    walk reads stay in shared memory, so the call allocates nothing but its
+    output. Takes CUDA tensors only: int8 q [N, B] and t [N, T], int32
+    q_lens, t_lens and modes [N], contiguous on one device; B a multiple of
+    16, band 128. Counted in `banded_fused_cuda.launches`."""
+    from ._build import load_kernels
+
+    _check_shapes(q, q_lens, t, t_lens)
+    N, B = q.shape
+    T = t.shape[1]
+    if spec.band != LANES:
+        raise ValueError(f"the int32 banded-DP kernel is specialised to band {LANES}, got {spec.band}")
+    if B % 16 != 0:
+        raise ValueError(f"the fused int32 banded-DP kernel needs a chunk that is a multiple of 16, got {B}")
+    for name, x in (("q_lens", q_lens), ("t_lens", t_lens), ("modes", modes)):
+        if x.dtype != torch.int32 or x.shape != (N,) or x.device != q.device:
+            raise TypeError(f"{name} must be an int32 tensor of shape [{N}] on {q.device}")
+    tensors = (q, t, q_lens, t_lens, modes)
+    if not all(x.is_contiguous() for x in tensors):
+        raise ValueError("q, t, q_lens, t_lens and modes must be contiguous")
+    if q.device.type != "cuda":
+        raise ValueError(f"banded_fused_cuda takes CUDA tensors, got {q.device}")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
+    lib = load_kernels()
+    smem = lib.hs_banded_fused_smem_bytes(B)
+    if smem > MAX_BLOCK_SMEM:
+        raise ValueError(
+            f"chunk {B} needs {smem} bytes of shared memory per block for the walk's scratch, "
+            f"more than the {MAX_BLOCK_SMEM} a block may have"
+        )
+    out = torch.empty((N, 16 + B), dtype=torch.uint8, device=q.device)
+    if N == 0:  # nothing to launch, and nothing counted
+        return out
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hs_banded_fused(*(x.data_ptr() for x in tensors), N, B, T, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"hs_banded_fused launch failed with CUDA error {rc}")
+    banded_fused_cuda.launches += 1
+    return out
+
+
+banded_fused_cuda.launches = 0

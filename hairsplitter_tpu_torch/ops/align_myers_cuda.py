@@ -185,6 +185,8 @@ def _myers_rows_cuda(q: torch.Tensor, t: torch.Tensor, emit_tb: bool) -> list[to
     qT = q.t().contiguous()
     tT = t.t().contiguous()
     outs = [torch.empty((B, N, NW), dtype=torch.int32, device=q.device) for _ in range(4 if emit_tb else 2)]
+    if N == 0:  # nothing to launch, and nothing counted
+        return outs
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -245,6 +247,8 @@ def myers_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -
         raise ValueError("q and t must be 16-byte aligned")
     lib = load_kernels()
     out = torch.empty((N, 16 + B), dtype=torch.uint8, device=q.device)
+    if N == 0:  # nothing to launch, and nothing counted
+        return out
     scratch = torch.empty((B, N, 2, NW), dtype=torch.int32, device=q.device)  # (nonleft, isup) per row and job
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

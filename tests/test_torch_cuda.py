@@ -1,5 +1,5 @@
-"""On-card checks of the PyTorch port: the CUDA kernels (K1 Myers in its
-check mode and its fused main-path mode, K2 int32 banded DP) against their
+"""On-card checks of the PyTorch port: the CUDA kernels (K1 Myers and K2 int32
+banded DP, each in its check mode and its fused main-path mode) against their
 plain PyTorch versions, and the fused call and
 `map_reads` on the GPU against the same functions on the CPU, for both DP
 kernels. Every test is marked `cuda` and skips without a GPU (the kernels
@@ -20,7 +20,7 @@ from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
 from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
 from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
-from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, myers_fused_plain
+from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, banded_fused_plain, myers_fused_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -99,13 +99,81 @@ def test_k2_kernel_equals_plain_version(cuda, n, emit_enc):
         assert got[key].dtype == ref[key].dtype and torch.equal(got[key], ref[key]), key
 
 
+@pytest.mark.parametrize("pattern", MODE_PATTERNS)
+@pytest.mark.parametrize("jobs", ["edge", 1, 33, 4096])
+def test_k2_fused_kernel_equals_plain_composition(cuda, jobs, pattern):
+    """K2's main-path mode against banded_align_batch_torch (enc) ->
+    readout_device -> traceback_scan, all on the card, byte for byte; one
+    call is exactly one launch, and none of the check-mode kernel."""
+    q, ql, t, tl = edge_jobs(SPEC) if jobs == "edge" else _jobs(jobs, jobs)
+    n = q.shape[0]
+    arrays = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl, mode_pattern(pattern, n))]
+    before, check_before = ad.banded_fused_cuda.launches, ad.banded_align_batch_dp.launches
+    got = align_traceback_rows(*arrays, SPEC, "pallas")
+    torch.cuda.synchronize()
+    assert ad.banded_fused_cuda.launches == before + 1
+    assert ad.banded_align_batch_dp.launches == check_before
+    ref = banded_fused_plain(*arrays, SPEC)
+    assert got.dtype == torch.uint8 and got.shape == (n, 16 + SPEC.chunk)
+    assert torch.equal(got, ref), (got != ref).any(dim=1).nonzero()[:8, 0].tolist()
+
+
+@pytest.mark.parametrize("chunk", [64, 2048])  # 2048: 69.8 KB of dynamic shared memory, above the default 48 KB
+def test_k2_fused_kernel_at_other_chunks(cuda, chunk):
+    spec = BandSpec(chunk=chunk, band=128)
+    n = 515 if chunk == 64 else 40
+    q, ql, t, tl = random_jobs(np.random.default_rng(9), n, spec)
+    arrays = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl, mode_pattern("alternating", n))]
+    assert torch.equal(ad.banded_fused_cuda(*arrays, spec), banded_fused_plain(*arrays, spec))
+
+
+def test_k2_fused_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, ql, t, tl = (torch.from_numpy(x).to(cuda) for x in _jobs(5, 64))
+    modes = torch.zeros(64, dtype=torch.int32, device=cuda)
+    before = ad.banded_fused_cuda.launches
+    with pytest.raises(TypeError):
+        ad.banded_fused_cuda(q, ql.to(torch.int64), t, tl, modes, SPEC)
+    with pytest.raises(ValueError, match="contiguous"):
+        ad.banded_fused_cuda(q[:, ::2], ql, t, tl, modes, BandSpec(chunk=128, band=128))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ad.banded_fused_cuda(q[:, :250].contiguous(), ql, t, tl, modes, BandSpec(chunk=250, band=128))
+    with pytest.raises(ValueError, match="band 128"):
+        ad.banded_fused_cuda(q, ql, t, tl, modes, BandSpec(chunk=256, band=64))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ad.banded_fused_cuda(q.cpu(), ql.cpu(), t.cpu(), tl.cpu(), modes.cpu(), SPEC)
+    big = BandSpec(chunk=8192, band=128)  # a block's scratch would pass the shared memory of an SM
+    with pytest.raises(ValueError, match="chunk 8192"):
+        ad.banded_fused_cuda(torch.zeros((4, 8192), dtype=torch.int8, device=cuda), ql[:4],
+                             torch.zeros((4, big.t_width), dtype=torch.int8, device=cuda), tl[:4], modes[:4], big)
+    assert ad.banded_fused_cuda.launches == before
+
+
+FUSED_WRAPPER = {"myers": am.myers_fused_cuda, "pallas": ad.banded_fused_cuda}
+
+
+def test_empty_batch_launches_nothing_and_counts_nothing(cuda):
+    """A launch counter moves only where a kernel is launched: no job, no
+    launch, an empty result of the right shape and no count."""
+    q, ql, t, tl = (torch.from_numpy(x[:0]).to(cuda) for x in _jobs(5, 16))
+    modes = torch.zeros(0, dtype=torch.int32, device=cuda)
+    wrappers = (am.myers_rows, am.myers_fused_cuda, ad.banded_align_batch_dp, ad.banded_fused_cuda)
+    before = [w.launches for w in wrappers]
+    assert [x.shape for x in am.myers_rows(q, t, SPEC, emit_tb=True)] == [(0, SPEC.chunk, 4)] * 4
+    assert am.myers_fused_cuda(q, ql, t, tl, modes, SPEC).shape == (0, 16 + SPEC.chunk)
+    assert ad.banded_align_batch_dp(q, ql, t, tl, SPEC, emit_enc=True)["enc"].shape == (0, SPEC.chunk, 128)
+    assert ad.banded_fused_cuda(q, ql, t, tl, modes, SPEC).shape == (0, 16 + SPEC.chunk)
+    assert [w.launches for w in wrappers] == before
+
+
 @pytest.mark.parametrize("kernel", ["myers", "pallas"])
 def test_fused_call_on_card_equals_cpu(cuda, kernel):
     arrays = _jobs(7, 2048)
     modes = (np.arange(2048) % 2).astype(np.int32)
     host = [torch.from_numpy(x) for x in (*arrays, modes)]
     cpu = align_traceback_rows(*host, SPEC, kernel)
+    before = FUSED_WRAPPER[kernel].launches
     gpu = align_traceback_rows(*(x.to(cuda) for x in host), SPEC, kernel)
+    assert FUSED_WRAPPER[kernel].launches == before + 1  # the call went through the fused kernel
     assert torch.equal(gpu.cpu(), cpu)
 
 
@@ -117,6 +185,10 @@ def test_map_reads_on_card_equals_cpu(cuda, cfg):
                            sub_rate=0.06, ins_rate=0.02, del_rate=0.02).seqs
     key = lambda a: (a.read_idx, a.strand, a.q_start, a.q_end, a.t_start, a.t_end,  # noqa: E731
                      a.cigar_ops.tolist(), a.cigar_lens.tolist(), a.nm)
+    wrapper = am.myers_fused_cuda if cfg.use_myers else ad.banded_fused_cuda
     cpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device="cpu")]
+    before, check_before = wrapper.launches, ad.banded_align_batch_dp.launches
     gpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device=cuda)]
+    assert wrapper.launches > before  # mapping on the card went through the fused kernel
+    assert ad.banded_align_batch_dp.launches == check_before
     assert len(cpu) > 0 and gpu == cpu
