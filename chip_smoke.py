@@ -41,6 +41,25 @@ Phases (each prints its result; any failure raises and exits non-zero):
      map with the default MapConfig, K1, in the JAX package too); the SAM
      and the final GFA must be byte-identical to phase 4's and every
      strain's recovery must be >= 0.95;
+  6. medaka+tailor: the same dataset with its assembly broken on purpose (a
+     chimeric contig that joins two distant pieces, the piece between them
+     and the end as contigs of their own, no link) through the CLI with
+     `--correct-assembly -p medaka` on cuda: stage 1b must report more
+     end-to-end reads after than before, at least one cut and one new link,
+     and launch the fused K1 kernel; no check-mode kernel may launch; the NN
+     caller must be called, on the card; every strain's recovery must be
+     >= 0.95 and within 0.005 of phase 4's;
+  7. polisher: `PolisherCNN` with the shipped weights on the card against
+     itself on the CPU on seeded features at L = 256, 4,096 and 65,536
+     (logits within atol 1e-4; bases equal where the top-two margin is above
+     1e-3; TF32 must be off);
+  8. graphunzip: a 20 kb two-strain dataset whose stage 6 duplicates a contig
+     runs through the CLI on cuda; then `graphunzip unzip -g -l -r` on that
+     run's zipped graph and GAF, and `graphunzip hic-im` on simulated mate
+     pairs, each on cuda and with `--device cpu`: the outputs must be equal
+     (GFA byte for byte, the matrix exactly) and K1 must launch on cuda;
+  9. bihap: `spectral_phase` on the card against the CPU on a seeded
+     two-haplotype allele matrix: the same partition of the reads;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -140,6 +159,47 @@ def mode_pattern(name: str, n: int) -> np.ndarray:
     if name == "alternating":
         return (np.arange(n) % 2).astype(np.int32)
     return np.full(n, 0 if name == "global" else 1, np.int32)
+
+
+def break_assembly(hap: str) -> dict[str, str]:
+    """The 300 kb assembly broken the way tests/test_tailor.py breaks its
+    assemblies: `chim` joins the first 100 kb to the distant piece
+    200-250 kb (a misjoin), and what lies between and after them are contigs
+    of their own, every link left out."""
+    return {
+        "chim": hap[:100_000] + hap[200_000:250_000],
+        "mid": hap[100_000:200_000],
+        "end": hap[250_000:],
+    }
+
+
+def two_strain_dataset(root: str, length=20_000, shared=(7800, 12200), read_len=7000, coverage=15, seed=1):
+    """A 20 kb genome in two strains that differ by 1% outside `shared`,
+    where they are identical, so that stage 6 duplicates the shared contig
+    and re-polishes the copies; 10% read error. The assembly is strain 1.
+    Returns (assembly path, reads path, haplotypes)."""
+    from hairsplitter_tpu_torch.io.fasta import write_fasta
+    from hairsplitter_tpu_torch.utils import sim
+
+    rng = np.random.default_rng(seed)
+    backbone = sim.random_genome(length, rng)
+    lo, hi = shared
+    left, _ = sim.mutate(backbone[:lo], 0.01, rng)
+    right, _ = sim.mutate(backbone[hi:], 0.01, rng)
+    haps = [backbone, left + backbone[lo:hi] + right]
+    reads = sim.simulate_reads(
+        haps, coverage=coverage, read_len=read_len, rng=rng,
+        sub_rate=0.06, ins_rate=0.02, del_rate=0.02,
+    )
+    asm_path = os.path.join(root, "assembly.fasta")
+    reads_path = os.path.join(root, "reads.fasta")
+    write_fasta(asm_path, {"asm": haps[0]})
+    sim.write_sim_fasta(reads_path, reads)
+    return asm_path, reads_path, haps
+
+
+def partition(labels: np.ndarray) -> set:
+    return {frozenset(np.nonzero(labels == g)[0].tolist()) for g in set(labels.tolist())}
 
 
 def build_dataset(root: str):
@@ -501,7 +561,7 @@ def main() -> int:
         print(f"[main] CLI on cuda: K1 fused launches {launches}, K1 check-mode launches "
               f"{check_mode_launches}, K2 fused launches {ad.banded_fused_cuda.launches}, K2 check-mode "
               f"launches {ad.banded_align_batch_dp.launches}", flush=True)
-        check_run(out, wall, "main")
+        recovery_main = check_run(out, wall, "main")
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
         out_k2 = os.path.join(root, "out_k2")
@@ -549,6 +609,160 @@ def main() -> int:
         print("[main K2] tmp/reads_on_asm.sam and hairsplitter_final_assembly.gfa byte-identical "
               "to the K1 run's", flush=True)
         check_run(out_k2, wall, "main K2")
+
+        # ---- 6. --correct-assembly -p medaka on a broken assembly
+        from hairsplitter_tpu_torch.io.fasta import write_fasta
+        from hairsplitter_tpu_torch.models import polisher
+
+        assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32, \
+            "TF32 must be off: the polisher's convolutions are held to the CPU's at 1e-4"
+        broken_path = os.path.join(root, "broken_assembly.fasta")
+        write_fasta(broken_path, break_assembly(haps[0]))
+        out_mt = os.path.join(root, "out_medaka_tailor")
+        stage1b = {}
+        tailor = orchestrate.correct_assembly
+
+        def counted_correct_assembly(*args, **kwargs):
+            k1 = am.myers_fused_cuda.launches
+            t1 = time.perf_counter()
+            graph, report = tailor(*args, **kwargs)
+            stage1b.update(report=report, launches=am.myers_fused_cuda.launches - k1,
+                           seconds=time.perf_counter() - t1)
+            return graph, report
+
+        nn = polisher.default_polisher(dev)
+        assert next(nn.model.parameters()).is_cuda, "the NN caller's weights are not on the card"
+        nn_calls0, nn_seconds0 = nn.calls, nn.seconds
+        orchestrate.correct_assembly = counted_correct_assembly  # the stage-1b call site
+        try:
+            am.myers_fused_cuda.launches = 0
+            am.myers_rows.launches = 0
+            ad.banded_align_batch_dp.launches = 0
+            ad.banded_fused_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", broken_path, "-f", reads_path, "-o", out_mt, "--correct-assembly", "-p", "medaka"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            orchestrate.correct_assembly = tailor
+        assert rc == 0, f"CLI returned {rc}"
+        rep = stage1b["report"]
+        nn_calls, nn_ms = nn.calls - nn_calls0, (nn.seconds - nn_seconds0) * 1e3
+        nn_rest = (nn_ms - nn.slowest * 1e3) / max(nn_calls - 1, 1)
+        print(f"[medaka+tailor] CLI --correct-assembly -p medaka on cuda ({card}): stage 1b "
+              f"{stage1b['seconds']:.2f} s, K1 fused launches in stage 1b {stage1b['launches']} "
+              f"(whole run {am.myers_fused_cuda.launches}), check-mode launches K1 {am.myers_rows.launches} "
+              f"K2 {ad.banded_align_batch_dp.launches}; tailor: end-to-end reads {rep.end_to_end_before} -> "
+              f"{rep.end_to_end_after} of {rep.n_reads} (history {rep.e2e_history}), {rep.iterations} iterations, "
+              f"cuts {rep.cuts}, new links {rep.new_links}, dropped {rep.dropped_low_coverage}; "
+              f"NN calls {nn_calls}, total {nn_ms:.1f} ms, mean {nn_ms / max(nn_calls, 1):.3f} ms "
+              f"(slowest call {nn.slowest * 1e3:.1f} ms, mean of the others {nn_rest:.3f} ms)", flush=True)
+        assert rep.end_to_end_after > rep.end_to_end_before, "tailor did not raise the end-to-end reads"
+        assert len(rep.cuts) >= 1 and len(rep.new_links) >= 1, "tailor made no cut or no link"
+        assert stage1b["launches"] > 0, "stage 1b never launched the fused Myers kernel"
+        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+            "the --correct-assembly -p medaka run launched a check-mode kernel"
+        assert nn_calls > 0, "-p medaka never called the NN caller"
+        stats_mt = json.load(open(os.path.join(out_mt, "stage_stats.json")))
+        assert stats_mt["nn_caller"]["calls"] == nn_calls and "correct_assembly" in stats_mt
+        recovery_mt = check_run(out_mt, wall, "medaka+tailor")
+        worst = max(a - b for a, b in zip(recovery_main, recovery_mt))
+        assert worst <= 0.005, f"recovery fell by {worst:.4f} against the default run's {recovery_main}"
+
+    # ---- 7. the polisher CNN on the card against the CPU
+    on_cpu, on_card = polisher.load_weights(device="cpu"), polisher.load_weights(device=dev)
+    for L in (256, 4096, 65536):
+        feats, _ = polisher._simulate_training_batch(
+            np.random.default_rng(L), L=L, cov_lo=4, cov_hi=20, err=0.12, div=0.02)
+        ref, got = on_cpu.logits(feats), on_card.logits(feats)
+        assert got.shape == ref.shape == (L, polisher.N_CLASSES) and np.isfinite(got).all()
+        err = float(np.abs(got - ref).max())
+        top = np.sort(ref, axis=1)
+        clear = top[:, -1] - top[:, -2] > 1e-3
+        assert np.allclose(got, ref, atol=1e-4, rtol=1e-4), f"polisher logits differ by {err:.3e} at L={L}"
+        assert (got.argmax(axis=1)[clear] == ref.argmax(axis=1)[clear]).all(), f"polisher bases differ at L={L}"
+        x = torch.from_numpy(feats).to(dev)[None]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: on_card.model(x), 20)
+        print(f"[polisher] L={L}: cuda == cpu (max |logit difference| {err:.2e}, atol 1e-4; bases equal at the "
+              f"{int(clear.sum())} of {L} positions with a top-two margin above 1e-3); forward pass "
+              f"{ms:.4f} ms on the card", flush=True)
+
+    # ---- 8. graphunzip on the card against --device cpu
+    from hairsplitter_tpu_torch import graphunzip
+
+    with tempfile.TemporaryDirectory(prefix="hs_smoke_gz_") as root:
+        asm_path, reads_path, haps2 = two_strain_dataset(root)
+        out = os.path.join(root, "out")
+        assert cli.main(["-i", asm_path, "-f", reads_path, "-o", out]) == 0
+        zipped = os.path.join(out, "tmp", "zipped_assembly.gfa")
+        gaf = os.path.join(out, "tmp", "reads_on_new_contig.gaf")
+        results = {}
+        for device in ("cuda", "cpu"):
+            am.myers_fused_cuda.launches = 0
+            am.myers_rows.launches = 0
+            gfa_out = os.path.join(root, f"unzipped_{device}.gfa")
+            t0 = time.perf_counter()
+            assert graphunzip.main(["unzip", "-g", zipped, "-l", gaf, "-r", reads_path, "-o", gfa_out,
+                                    "--supercontigs", os.path.join(root, f"super_{device}.txt"),
+                                    "--device", device]) == 0
+            results[device] = (open(gfa_out, "rb").read(), am.myers_fused_cuda.launches, time.perf_counter() - t0)
+            assert am.myers_rows.launches == 0
+        assert results["cuda"][1] > 0, "graphunzip unzip -r on cuda never launched the fused Myers kernel"
+        assert results["cpu"][1] == 0, "graphunzip unzip --device cpu launched a CUDA kernel"
+        assert results["cuda"][0] == results["cpu"][0] and len(results["cuda"][0]) > 0, \
+            "graphunzip unzip: the GFA on cuda differs from the GFA with --device cpu"
+        print(f"[graphunzip] unzip -g -l -r on the run's zipped graph: cuda GFA == cpu GFA byte for byte "
+              f"({len(results['cuda'][0])} bytes); K1 fused launches on cuda {results['cuda'][1]}; "
+              f"{results['cuda'][2]:.2f} s on cuda, {results['cpu'][2]:.2f} s on cpu", flush=True)
+
+        # mate pairs 2-4 kb apart on one haplotype, 400 bp each
+        rng = np.random.default_rng(5)
+        r1_path, r2_path = os.path.join(root, "hic_R1.fasta"), os.path.join(root, "hic_R2.fasta")
+        with open(r1_path, "w") as f1, open(r2_path, "w") as f2:
+            for k in range(400):
+                hap = haps2[k % 2]
+                a = int(rng.integers(0, len(hap) - 4400))
+                b = a + int(rng.integers(2000, 4000))
+                f1.write(f">p{k}\n{hap[a:a + 400]}\n")
+                f2.write(f">p{k}\n{hap[b:b + 400]}\n")
+        mats = {}
+        for device in ("cuda", "cpu"):
+            am.myers_fused_cuda.launches = 0
+            im_out = os.path.join(root, f"im_{device}.npz")
+            assert graphunzip.main(["hic-im", "-g", zipped, "-1", r1_path, "-2", r2_path, "-o", im_out,
+                                    "--device", device]) == 0
+            data = np.load(im_out, allow_pickle=True)
+            mats[device] = (list(data["names"]), data["m"], am.myers_fused_cuda.launches)
+        assert mats["cuda"][2] > 0, "graphunzip hic-im on cuda never launched the fused Myers kernel"
+        assert mats["cuda"][0] == mats["cpu"][0] and np.array_equal(mats["cuda"][1], mats["cpu"][1]), \
+            "graphunzip hic-im: the matrix on cuda differs from the matrix with --device cpu"
+        assert mats["cuda"][1].sum() > 0, "graphunzip hic-im counted no pair"
+        print(f"[graphunzip] hic-im on 400 mate pairs: cuda matrix == cpu matrix "
+              f"({len(mats['cuda'][0])} contigs, {int(mats['cuda'][1].sum() // 2)} contacts between contigs); "
+              f"K1 fused launches on cuda {mats['cuda'][2]}", flush=True)
+
+    # ---- 9. the spectral phaser on the card against the CPU
+    from hairsplitter_tpu_torch.models.bihap import allele_matrix, spectral_phase
+    from hairsplitter_tpu_torch.pipeline.call_variants import SparseColumn
+
+    rng = np.random.default_rng(4)
+    n_reads, n_snps = 400, 300
+    hap_of = np.repeat(np.arange(2), n_reads // 2)
+    columns = []
+    for snp in range(n_snps):
+        present = rng.random(n_reads) > 0.1
+        alleles = np.where((hap_of == 1) ^ (rng.random(n_reads) < 0.05), 7, 3).astype(np.int16)
+        columns.append(SparseColumn(pos=100 * snp, top1=3, top2=7,
+                                    rows=np.nonzero(present)[0], alleles=alleles[present]))
+    sv = np.linalg.svd(allele_matrix(columns, n_reads), compute_uv=False)
+    assert sv[0] > 3 * sv[1], f"the allele matrix has no clear spectral gap: {sv[:3]}"
+    labels = {d: spectral_phase(columns, n_reads, n_haplotypes=2, device=d) for d in ("cpu", "cuda")}
+    assert partition(labels["cuda"]) == partition(labels["cpu"]), "spectral_phase: cuda and cpu partitions differ"
+    assert partition(labels["cuda"]) == partition(hap_of), "spectral_phase did not recover the two haplotypes"
+    print(f"[bihap] spectral_phase on a {n_reads} x {n_snps} allele matrix (singular values {sv[0]:.1f}, "
+          f"{sv[1]:.1f}): cuda partition == cpu partition == the two haplotypes", flush=True)
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms):
         return {

@@ -57,16 +57,15 @@ def parse_args(argv=None):
     p.add_argument(
         "--correct-assembly",
         action="store_true",
-        help="correct assembly errors before splitting (GenomeTailor stage; "
-        "not ported yet: ROADMAP.md Queue 1, item 9)",
+        help="correct assembly errors before splitting (GenomeTailor stage)",
     )
     p.add_argument(
         "-p",
         "--polisher",
         default="racon",
         choices=["racon", "medaka"],
-        help="racon: in-process vote+POA consensus ladder; medaka: the NN "
-        "base-caller pass (not ported yet: ROADMAP.md Queue 1, item 9)",
+        help="racon: in-process vote+POA consensus ladder; medaka: adds the "
+        "pretrained NN base-caller pass after the ladder (models/polisher.py)",
     )
     p.add_argument(
         "-q", "--min-read-quality", type=float, default=0,
@@ -142,14 +141,6 @@ def main(argv=None):
     args = parse_args(argv)
     import os
 
-    unported = []
-    if args.correct_assembly:
-        unported.append("--correct-assembly (ROADMAP.md Queue 1, item 9)")
-    if args.polisher == "medaka":
-        unported.append("-p medaka (ROADMAP.md Queue 1, item 9)")
-    if unported:
-        print(f"ERROR: not ported yet: {', '.join(unported)}", file=sys.stderr)
-        return 2
     if os.path.exists(args.output) and os.listdir(args.output) and not (args.force or args.resume):
         print(
             f"ERROR: output directory {args.output} is not empty (use -F to overwrite or --resume)",
@@ -165,6 +156,7 @@ def main(argv=None):
         haploid_coverage=args.haploid_coverage,
         rarest_strain_abundance=args.rarest_strain_abundance,
         resume=args.resume,
+        correct_assembly=args.correct_assembly,
         no_clean=args.no_clean,
         min_read_quality=args.min_read_quality,
         low_memory=args.low_memory,

@@ -3,7 +3,8 @@
 Port of `hairsplitter_tpu/ops/consensus.py` (host numpy; the port owns it
 because the JAX module loads JAX): the pileup majority vote with insertion
 recovery, and the racon-style remap-and-vote loop on the port's mapper.
-The NN base caller (`-p medaka`) is not part of the port yet.
+`base_caller` swaps the per-column vote for a learned caller (the NN of
+`models/polisher.py`, `-p medaka`).
 """
 
 from __future__ import annotations
@@ -24,9 +25,12 @@ def consensus_from_cells(
     rows_cells: list[tuple[np.ndarray, np.ndarray]],  # per read: (tpos, central codes)
     rows_insertions: list[tuple[np.ndarray, np.ndarray]],  # per read: (ins tpos, codes)
     min_cov: int = 1,
+    base_caller=None,  # optional fn(counts, cover, ins_rate, backbone) -> bases
 ) -> str:
     """Consensus of one read group over one interval
-    (`ops/consensus.py:consensus_from_cells` with the vote caller)."""
+    (`ops/consensus.py:consensus_from_cells`). `base_caller` swaps the
+    per-column majority vote for a learned caller; insertion recovery stays
+    rule-based either way."""
     L = len(backbone)
     counts = np.zeros((L, 5), dtype=np.int32)
     cover = np.zeros(L, dtype=np.int32)
@@ -38,7 +42,16 @@ def consensus_from_cells(
         counts[idx, c] += 1
         cover[idx] += 1
 
-    best = counts.argmax(axis=1)
+    if base_caller is not None:
+        ins_events = np.zeros(L, dtype=np.int32)
+        for ins_tpos, _ in rows_insertions:
+            if ins_tpos.size:
+                sel = ins_tpos[(ins_tpos >= start) & (ins_tpos < start + L)] - start
+                np.add.at(ins_events, np.unique(sel), 1)
+        ins_rate = ins_events / np.maximum(cover, 1)
+        best = np.asarray(base_caller(counts, cover, ins_rate, backbone))
+    else:
+        best = counts.argmax(axis=1)
     # no/low coverage -> keep the backbone base
     use_backbone = cover < min_cov
     out_base = np.where(use_backbone, backbone, best)
@@ -89,6 +102,7 @@ def polish_iterative(
     reads: list[str],
     rounds: int = 2,
     map_cfg=None,
+    base_caller=None,
     min_len: int = 300,
     *,
     device,
@@ -113,7 +127,9 @@ def polish_iterative(
             tpos, tri, it, ic = alignment_cells_full(a, oriented)
             cells.append((tpos, (np.asarray(tri, np.int16) // 25).astype(np.int8)))
             inss.append((it, ic))
-        new = consensus_from_cells(encode_seq(cur), 0, cells, inss)
+        new = consensus_from_cells(
+            encode_seq(cur), 0, cells, inss, base_caller=base_caller
+        )
         if new == cur or len(new) < min_len:
             break
         cur = new

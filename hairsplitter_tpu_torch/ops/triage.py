@@ -277,6 +277,7 @@ def select_backbone(
     group_reads: list[str],
     strands: list[int],
     baseline: str,
+    base_caller=None,
     *,
     device,
 ) -> str:
@@ -308,7 +309,9 @@ def select_backbone(
         (_backbone_badness(baseline, group_reads, device=device), baseline)
     ]
     for c in candidates:
-        p = polish_iterative(c, group_reads, rounds=2, min_len=50, device=device)
+        p = polish_iterative(
+            c, group_reads, rounds=2, base_caller=base_caller, min_len=50, device=device
+        )
         scored.append((_backbone_badness(p, group_reads, device=device), p))
     best_score, best = min(scored, key=lambda t: t[0])
     if best is not baseline:

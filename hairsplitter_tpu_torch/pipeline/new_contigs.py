@@ -11,8 +11,9 @@ untangling stage.
 New contig naming: `<contig>_<intervalStart>_<group>` (:642).
 
 Port of `hairsplitter_tpu/pipeline/new_contigs.py` (the JAX module loads
-JAX through `ops.consensus`); polishing remaps run on the port's mapper.
-The NN base caller (`-p medaka`) is not part of the port yet.
+JAX through `ops.consensus`); polishing remaps run on the port's mapper,
+and `base_caller` (`-p medaka`, the NN of `models/polisher.py`) takes the
+vote's place per column and adds a gated pass after the POA ladder.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from ..core.datatypes import Alignment
 from ..io.gfa import AssemblyGraph, Link
 from ..ops.consensus import consensus_from_cells, polish_iterative
 from ..ops.poa import polish_poa_multi
-from ..ops.triage import check_backbone, select_backbone
+from ..ops.triage import _backbone_badness, check_backbone, select_backbone
 from .pileup import alignment_cells_full, orient_read
 from .separate_reads import ContigGroups
 from .unzip import DUMMY
@@ -165,6 +166,7 @@ def create_new_contigs(
     polish_everything: bool = False,
     polish_rounds: int = 0,  # extra racon-style polish rounds (noisy reads)
     polish_mode: str = "vote",  # "vote" (remap+vote) | "poa" (racon-equivalent)
+    base_caller=None,  # medaka-equivalent NN caller (models/polisher.py)
     *,
     device,
 ) -> ZipResult:
@@ -234,7 +236,9 @@ def create_new_contigs(
                         iv.end,
                     )
                     if code != 0:
-                        baseline = consensus_from_cells(backbone, iv.start, rc, ri)
+                        baseline = consensus_from_cells(
+                            backbone, iv.start, rc, ri, base_caller=base_caller
+                        )
                         seq_g = select_backbone(
                             code,
                             backbone,
@@ -246,11 +250,14 @@ def create_new_contigs(
                             [read_seqs[alns[r].read_idx] for r in rows],
                             [alns[r].strand for r in rows],
                             baseline,
+                            base_caller=base_caller,
                             device=device,
                         )
                         new_graph.add_segment(name, seq_g, depths.get(g, 0.0))
                         continue
-                    seq_g = consensus_from_cells(backbone, iv.start, rc, ri)
+                    seq_g = consensus_from_cells(
+                        backbone, iv.start, rc, ri, base_caller=base_caller
+                    )
                     if polish_rounds > 0:
                         group_reads = [read_seqs[alns[r].read_idx] for r in rows]
                         if polish_mode == "poa":
@@ -261,7 +268,11 @@ def create_new_contigs(
                             )
                         else:
                             seq_g = polish_iterative(
-                                seq_g, group_reads, rounds=polish_rounds, device=device
+                                seq_g,
+                                group_reads,
+                                rounds=polish_rounds,
+                                base_caller=base_caller,
+                                device=device,
                             )
                 else:
                     seq_g = decode_seq(backbone)
@@ -305,6 +316,31 @@ def create_new_contigs(
         )
         for job, seq_p in zip(poa_jobs, polished):
             new_graph.segments[job[0]] = seq_p
+        if base_caller is not None:
+            # -p medaka composes WITH the ladder (vote -> POA -> NN), the
+            # topology real medaka deployments use (polish racon output);
+            # the reference instead swaps the whole ladder for medaka
+            # (tools.cpp:594-689). A read-fit tournament keeps the NN pass
+            # from ever regressing below the ladder's output.
+            for job in poa_jobs:
+                name, reads_g = job[0], job[2]
+                cur = new_graph.segments[name]
+                nn_seq = polish_iterative(
+                    cur, reads_g, rounds=1, base_caller=base_caller, device=device
+                )
+                # acceptance: read fit must not worsen AND the output must
+                # not shrink: reads that systematically undercall
+                # homopolymer runs FIT a shortened draft better, so the fit
+                # gate alone happily accepts deletions of true hp bases.
+                # The per-column caller cannot insert, so net shrinkage is
+                # exactly the failure signature.
+                if (
+                    nn_seq != cur
+                    and len(nn_seq) >= len(cur) - max(2, 0.0005 * len(cur))
+                    and _backbone_badness(nn_seq, reads_g, device=device)
+                    <= _backbone_badness(cur, reads_g, device=device)
+                ):
+                    new_graph.segments[name] = nn_seq
 
     # original inter-contig links -> attach to terminal interval groups
     for l in assembly.links:

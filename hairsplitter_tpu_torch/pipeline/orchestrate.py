@@ -13,9 +13,10 @@ artifact makes all later stages recompute.
 
 Port of `hairsplitter_tpu/pipeline/orchestrate.py` for one process on one
 device (`PipelineConfig.device`, default "cuda"): same stages, artifacts,
-resume fingerprint and stage statistics. `--correct-assembly` (ROADMAP.md
-Queue 1 item 9), `-p medaka` (item 9) and distributed runs (item 10) are
-rejected with an error until they are ported.
+resume fingerprint and stage statistics, `--correct-assembly` (stage 1b,
+`pipeline/tailor.py`) and `-p medaka` (the NN base caller of
+`models/polisher.py`) included. Runs across several processes (the JAX
+package's `comm` argument) are not ported yet: ROADMAP.md Queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from ..io.gfa import (
     write_gfa,
 )
 from ..io.sam import parse_sam, write_sam
+from ..models.polisher import default_polisher
 from ..ops.poa import poa_available
 from .call_variants import (
     ContigVariants,
@@ -60,6 +62,7 @@ from .call_variants import (
 from .multiplicity import determine_multiplicity, write_ploidy
 from .new_contigs import create_new_contigs, write_gaf
 from .separate_reads import ContigGroups, SeparateConfig, separate_reads_for_contig
+from .tailor import correct_assembly
 from .unzip import unzip
 
 # -x technology presets: the reference switches minimap2 presets per
@@ -215,14 +218,6 @@ def run_pipeline(
     cfg: PipelineConfig = PipelineConfig(),
 ):
     """Run every stage on `cfg.device`; returns the final GFA path."""
-    if cfg.correct_assembly:
-        raise NotImplementedError(
-            "--correct-assembly (pipeline/tailor.py) is not ported yet: ROADMAP.md Queue 1, item 9"
-        )
-    if cfg.polisher == "medaka":
-        raise NotImplementedError(
-            "-p medaka (models/polisher.py) is not ported yet: ROADMAP.md Queue 1, item 9"
-        )
     device = resolve_device(cfg.device)
     os.makedirs(out_dir, exist_ok=True)
     tmp_dir = os.path.join(out_dir, "tmp")
@@ -298,6 +293,37 @@ def run_pipeline(
     else:
         read_seqs = {i: store.get_seq(i) for i in range(len(store))}
     amplicon = cfg.technology == "amplicon"
+
+    if cfg.correct_assembly:
+        corrected_path = os.path.join(tmp_dir, "corrected_assembly.gfa")
+        if resume and os.path.exists(corrected_path):
+            assembly = parse_gfa(corrected_path)
+            log.log(f"  resume: corrected assembly loaded from {corrected_path}")
+        else:
+            log.log("STAGE 1b correcting the assembly (GenomeTailor-equivalent)")
+            t0 = time.time()
+            assembly, rep = correct_assembly(
+                assembly, read_seqs, cfg.map, artifact_dir=tmp_dir, resume=resume, device=device
+            )
+            log.log(
+                f"  end-to-end reads {rep.end_to_end_before} -> {rep.end_to_end_after}; "
+                f"{len(rep.cuts)} cuts, {len(rep.new_links)} new links"
+            )
+            stats.record("correct_assembly", time.time() - t0)
+            write_gfa(assembly, corrected_path)
+        # N50 sanity check on the corrected assembly (`hairsplitter.py:550-568`)
+        lens = sorted((len(s) for s in assembly.segments.values()), reverse=True)
+        total = sum(lens)
+        acc = 0
+        for n50 in lens:
+            acc += n50
+            if acc * 2 > total:
+                break
+        if lens and n50 < 10_000:
+            log.log(
+                f"  WARNING: the corrected assembly has a low N50 ({n50}); "
+                "consider re-running without --correct-assembly"
+            )
 
     sam_path = os.path.join(tmp_dir, "reads_on_asm.sam")
     if resume and os.path.exists(sam_path):
@@ -471,6 +497,14 @@ def run_pipeline(
     log.log("STAGE 5 creating new contigs")
     t0 = time.time()
     zip_in = {c: (per_contig_alns[c], groups[c]) for c in assembly.segments}
+    base_caller = None
+    if cfg.polisher == "medaka":
+        nn = default_polisher(device)
+        nn_calls0, nn_seconds0 = nn.calls, nn.seconds
+        base_caller = lambda counts, cover, ins_rate, backbone: nn.polish_counts(  # noqa: E731
+            counts, ins_rate, backbone
+        )
+        log.log("  polishing with the NN base caller (medaka-equivalent)")
     # racon-style extra polish rounds pay off only on very noisy reads: the
     # single-pass consensus is exact at <=10% read error. Above that, run
     # the reference's own ladder — vote consensus then racon (tools.cpp:
@@ -500,8 +534,13 @@ def run_pipeline(
         cfg.polish_everything,
         polish_rounds=polish_rounds,
         polish_mode=polish_mode,
+        base_caller=base_caller,
         device=device,
     )
+    if base_caller is not None:
+        # the NN caller's own share of stage 5: one call per read group and
+        # interval, each an upload, a forward pass and a download
+        stats.record("nn_caller", nn.seconds - nn_seconds0, calls=nn.calls - nn_calls0)
     new_bp = sum(len(s) for s in zr.graph.segments.values())
     stats.record("create_new_contigs", time.time() - t0, polished_kbp=new_bp / 1e3)
     write_gfa(zr.graph, os.path.join(tmp_dir, "zipped_assembly.gfa"))

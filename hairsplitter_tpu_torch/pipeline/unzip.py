@@ -2,8 +2,8 @@
 duplicated copies on the port's mapper.
 
 Counterpart of `hairsplitter_tpu/pipeline/unzip.py`: the graph helpers (link
-support, duplication at dilemmas, tips, chain merging, `UnzipResult`,
-`DUMMY`) are copies of that module's; `repolish_copies` and `unzip` run
+support, duplication at dilemmas, tips, chain merging, `duplicate_multiway`,
+`UnzipResult`, `DUMMY`) are copies of that module's; `repolish_copies` and `unzip` run
 their remaps through the port's `map_reads`.
 """
 
@@ -497,3 +497,56 @@ def unzip(
     else:
         composition = {n: [(n, 1)] for n in g.segments}
     return UnzipResult(graph=g, supercontigs=composition)
+
+
+def duplicate_multiway(g: AssemblyGraph) -> int:
+    """GraphUnzip's `-D` pass (`finish_untangling.py:223-268`): a contig with
+    >1 links on both ends, all of whose neighbors hang off it by their only
+    link, gets one copy per one-side neighbor — unconditional duplication by
+    topology+coverage, no read paths. Conditions mirror the reference:
+    depth > 0.7 * sum(end-neighbor depths) (or contig < 1000 bp), every
+    end-neighbor deeper than 0.2 * contig depth, no self-link. Copies split
+    depth proportionally to their neighbor and inherit ALL other-side links.
+    Loops to fixpoint. Returns the number of copies made."""
+    made = 0
+    serial = 0
+    changed = True
+    while changed:
+        changed = False
+        for name in list(g.segments):
+            if name not in g.segments:
+                continue
+            for side, other in (("+", "-"), ("-", "+")):
+                e = _neighbors(g, name, side)
+                o = _neighbors(g, name, other)
+                if len(e) <= 1 or len(o) <= 1:
+                    continue
+                if any(n == name for n, _ in e) or any(n == name for n, _ in o):
+                    continue  # self-link
+                facing_single = all(
+                    len(_neighbors(g, n, "-" if orient == "+" else "+")) == 1
+                    for n, orient in e + o
+                )
+                if not facing_single:
+                    continue
+                d = g.depths.get(name, 1.0)
+                nbr_depths = [g.depths.get(n, 1.0) for n, _ in e]
+                total = sum(nbr_depths) or 1.0
+                if not (d > 0.7 * total or len(g.segments[name]) < 1000):
+                    continue
+                if not all(nd > 0.2 * d for nd in nbr_depths):
+                    continue
+                seq = g.segments[name]
+                for (n, orient), nd in zip(e, nbr_depths):
+                    serial += 1
+                    cname = f"{name}-dup{serial}"
+                    g.add_segment(cname, seq, d * nd / total)
+                    g.add_link(Link(cname, side, n, orient, "0M"))
+                    for n2, orient2 in o:
+                        g.add_link(Link(cname, other, n2, orient2, "0M"))
+                    made += 1
+                g.remove_segment(name)
+                changed = True
+                break
+    g.dedupe_links()
+    return made

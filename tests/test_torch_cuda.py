@@ -2,7 +2,9 @@
 banded DP, each in its check mode and its fused main-path mode) against their
 plain PyTorch versions, and the fused call and
 `map_reads` on the GPU against the same functions on the CPU, for both DP
-kernels. Every test is marked `cuda` and skips without a GPU (the kernels
+kernels; and the paths off the main one on the GPU against the CPU: the
+polisher CNN (logits atol/rtol 1e-4, bases above a top-two margin of 1e-3),
+`correct_assembly` and `spectral_phase` (equal). Every test is marked `cuda` and skips without a GPU (the kernels
 have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a machine without JAX:
@@ -192,3 +194,72 @@ def test_map_reads_on_card_equals_cpu(cuda, cfg):
     assert wrapper.launches > before  # mapping on the card went through the fused kernel
     assert ad.banded_align_batch_dp.launches == check_before
     assert len(cpu) > 0 and gpu == cpu
+
+
+@pytest.mark.parametrize("L", [256, 4096])
+def test_polisher_on_the_card_equals_the_cpu(cuda, L):
+    """`PolisherCNN` with the shipped weights: logits within atol 1e-4 of the
+    CPU's (full float32 convolutions, TF32 off), bases equal wherever the two
+    best logits differ by more than 1e-3."""
+    from hairsplitter_tpu_torch.models import polisher as P
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(L)
+    feats, _ = P._simulate_training_batch(rng, L=L, cov_lo=4, cov_hi=20, err=0.12, div=0.02)
+    on_cpu, on_card = P.load_weights(device="cpu"), P.load_weights(device=cuda)
+    assert next(on_card.model.parameters()).is_cuda
+    ref, got = on_cpu.logits(feats), on_card.logits(feats)
+    np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
+    top = np.sort(ref, axis=1)
+    clear = top[:, -1] - top[:, -2] > 1e-3
+    np.testing.assert_array_equal(got.argmax(axis=1)[clear], ref.argmax(axis=1)[clear])
+    assert on_card.calls == 1
+
+
+def test_correct_assembly_on_the_card_equals_the_cpu(cuda):
+    """A misjoin and a gap (tests/test_torch_tailor.py:data_misjoin_and_gap):
+    the corrected graph and the report are the CPU's, and every mapping of
+    the loop launched the fused kernel."""
+    import dataclasses
+
+    from hairsplitter_tpu_torch.io.gfa import AssemblyGraph
+    from hairsplitter_tpu_torch.pipeline.tailor import correct_assembly
+    from hairsplitter_tpu_torch.utils.sim import random_genome
+
+    rng = np.random.default_rng(0)
+    A, decoy, B = random_genome(4000, rng), random_genome(3000, rng), random_genome(4000, rng)
+    sim = simulate_reads([A + random_genome(300, rng) + B], coverage=15, read_len=2500, rng=rng)
+    reads = dict(enumerate(sim.seqs))
+
+    def run(device):
+        asm = AssemblyGraph()
+        asm.add_segment("chim", A + decoy, depth=15)
+        asm.add_segment("B", B, depth=15)
+        g, rep = correct_assembly(asm, reads, device=device)
+        links = [(l.name1, l.orient1, l.name2, l.orient2, l.cigar) for l in g.links]
+        return list(g.segments.items()), links, dict(g.depths), dataclasses.asdict(rep)
+
+    ref = run("cpu")
+    before = am.myers_fused_cuda.launches
+    got = run(cuda)
+    assert am.myers_fused_cuda.launches - before >= 3  # before, after one pass, after
+    assert ref[3]["cuts"] and ref[3]["new_links"]
+    assert got == ref
+
+
+def test_spectral_phase_on_the_card_equals_the_cpu(cuda):
+    from hairsplitter_tpu_torch.models.bihap import spectral_phase
+    from hairsplitter_tpu_torch.pipeline.call_variants import SparseColumn
+
+    rng = np.random.default_rng(4)
+    hap = np.repeat(np.arange(2), 40)
+    cols = []
+    for s in range(50):
+        present = rng.random(80) > 0.1
+        alleles = np.where((hap == 1) ^ (rng.random(80) < 0.05), 7, 3).astype(np.int16)
+        cols.append(SparseColumn(pos=100 * s, top1=3, top2=7, rows=np.nonzero(present)[0], alleles=alleles[present]))
+    parts = [
+        {frozenset(np.nonzero(lab == g)[0].tolist()) for g in set(lab.tolist())}
+        for lab in (spectral_phase(cols, 80, n_haplotypes=2, device=d) for d in ("cpu", cuda))
+    ]
+    assert parts[0] == parts[1] and len(parts[0]) == 2

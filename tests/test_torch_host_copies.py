@@ -363,13 +363,118 @@ def case_native_dp_poa_expand(pkg, mapped):
     return tb, one, batch, rows
 
 
+def case_pad_axis(pkg, mapped):
+    f = _mod(pkg, "utils.shapes").pad_axis
+    a = np.arange(12, dtype=np.int32).reshape(3, 4)
+    return [f(a, 0, 5, 0), f(a, 1, 8, -1), f(a, 0, 3, 9), f(a, 1, 2, 9), f(np.arange(3.0), 0, 256, 0.0)]
+
+
+def case_gaf(pkg, mapped, tmp_path):
+    gaf = _mod(pkg, "io.gaf")
+    path = str(tmp_path / f"{pkg}.gaf")
+    rows = [
+        ("r0", 1000, 0, 1000, ">a>b<c", "id:f:0.95"), ("r1", 1000, 0, 300, ">a", "id:f:0.99"),
+        ("r2", 2000, 100, 1900, "<c<b", "id:f:0.80"), ("r3", 500, 0, 100, ">b>c", "id:f:0.97"),
+        ("r4", 0, 0, 10, ">a>c", "id:f:0.97"),
+    ]
+    with open(path, "w") as f:
+        f.write("short\tline\n")
+        for name, ql, qs, qe, p, tag in rows:
+            f.write(f"{name}\t{ql}\t{qs}\t{qe}\t+\t{p}\t3000\t0\t3000\t950\t1000\t60\t{tag}\n")
+    return (gaf.parse_gaf_path(">x<y>z_1"), gaf.parse_gaf(path), gaf.parse_gaf(path, similarity_threshold=0.9),
+            gaf.parse_gaf(path, whole_mapping_threshold=0.5), gaf.parse_gaf(path, min_contigs=1))
+
+
+def case_sim2(pkg, mapped, tmp_path):
+    s2 = _mod(pkg, "utils.sim2")
+    haps = [h[:4000] for h in mapped[0]]
+    reads = s2.generate(haps, coverage=5, cfg=s2.Sim2Config(mean_len=1200, min_len=300, junk_rate=0.05), seed=3,
+                        abundances=[1.0, 0.5])
+    path = str(tmp_path / f"{pkg}_sim2.fa")
+    s2.write_fasta(path, reads)
+    with open(path, "rb") as f:
+        raw = f.read()
+    return reads, raw, s2.generate(haps[:1], coverage=2, seed=4), list(s2._hp_runs("AAACGGTTTTT"))
+
+
+def _diamond(pkg, mid=("S",), depth_mid=20.0):
+    g = _mod(pkg, "io.gfa")
+    graph = g.AssemblyGraph()
+    for n in "ABCD":
+        graph.add_segment(n, "ACGT" * 500, depth=10)
+    for m in mid:
+        graph.add_segment(m, "TTTT" * 500, depth=depth_mid)
+    for a, b in [("A", mid[0]), ("C", mid[0]), (mid[-1], "B"), (mid[-1], "D")] + list(zip(mid[:-1], mid[1:])):
+        graph.add_link(g.Link(a, "+", b, "+"))
+    return graph
+
+
+def case_duplicate_multiway(pkg, mapped):
+    u = _mod(pkg, "pipeline.unzip")
+    out = []
+    for depth_mid, depth_b in ((20.0, 10.0), (5.0, 10.0), (20.0, 1.0)):
+        graph = _diamond(pkg, depth_mid=depth_mid)
+        graph.depths["B"] = depth_b
+        out.append((u.duplicate_multiway(graph), graph.normalized(), dict(graph.depths)))
+    return out
+
+
+def case_dbg(pkg, mapped):
+    g = _mod(pkg, "io.gfa")
+    d = _mod(pkg, "pipeline.dbg")
+    rng = np.random.default_rng(0)
+    graph = g.AssemblyGraph()
+    names = ["A", "B", "R1", "R2", "R3", "C", "D"]
+    for n in names:
+        graph.add_segment(n, "".join(rng.choice(list("ACGT"), size=2000)), depth=20.0 if n[0] == "R" else 10.0)
+    for a, b in (("A", "R1"), ("B", "R1"), ("R1", "R2"), ("R2", "R3"), ("R3", "C"), ("R3", "D")):
+        graph.add_link(g.Link(a, "+", b, "+"))
+    paths = {}
+    for i, p in enumerate(3 * [["A", "R1", "R2"], ["B", "R1", "R2"], ["R1", "R2", "R3"], ["R2", "R3", "C"],
+                               ["R2", "R3", "D"]]):
+        paths[i] = [(n, 1) for n in p] if i % 4 else [(n, 0) for n in reversed(p)]
+    chunked = d.paths_to_chunk_paths(graph, paths, 1000)
+    dbg2 = d.build_dbg(2, chunked)
+    out = d.dbg_unzip(graph, paths, k_max=9, chunk=1000)
+    return (chunked, sorted(dbg2.abundance.items()), d.n_components(dbg2), d.unitigs(dbg2, 2),
+            list(out.segments.items()), [(l.name1, l.orient1, l.name2, l.orient2, l.cigar) for l in out.links],
+            dict(out.depths))
+
+
+def case_hic(pkg, mapped):
+    h = _mod(pkg, "pipeline.hic")
+    graph = _diamond(pkg)
+    pairs = [("A", "B")] * 30 + [("C", "D")] * 30 + [("A", "D")] * 2 + [("A", "A"), ("A", "nope")]
+    im = h.interaction_matrix_from_pairs(list(graph.segments), pairs)
+    resolved = h.untangle_with_interactions(graph, im)
+    weak = _diamond(pkg)
+    none = h.untangle_with_interactions(weak, h.interaction_matrix_from_pairs(list(weak.segments), pairs[:2]))
+    return im.names, im.m, resolved, graph.normalized(), dict(graph.depths), none, weak.normalized()
+
+
+def case_hic_solve(pkg, mapped):
+    h = _mod(pkg, "pipeline.hic")
+    hs = _mod(pkg, "pipeline.hic_solve")
+    m = np.array([[0, 8, 1], [8, 0, 3], [1, 3, 0]], dtype=float)
+    graph = _diamond(pkg, mid=("S", "T"))
+    names = list(graph.segments)
+    pairs = [("A", "B")] * 30 + [("C", "D")] * 30 + [("A", "D")] * 2
+    rep = hs.solve_with_interactions(graph, names, h.interaction_matrix_from_pairs(names, pairs).m)
+    quiet = _diamond(pkg)
+    rep0 = hs.solve_with_interactions(quiet, list(quiet.segments), np.zeros((5, 5)))
+    return (hs.sinkhorn_normalize(m), rep, graph.normalized(), dict(graph.depths), rep0, quiet.normalized(),
+            hs.find_anchor_contigs(_diamond(pkg), confident_coverage=True),
+            hs.find_anchor_contigs(_diamond(pkg), confident_coverage=False))
+
+
 CASES = [
     case_constants, case_pow2_bucket, case_minimizers, case_find_chains_batch, case_select_pins_native,
     case_cigar, case_gfa, case_fasta, case_sam, case_alignment_datatype, case_build_window_blocks,
     case_greedy_assemble, case_determine_multiplicity, case_check_backbone,
     case_alternative_and_splice_backbone, case_poa_consensus_codes, case_pin_anchors_and_window_cuts,
     case_unzip_graph_helpers, case_sim, case_evaluate_phasing, case_native_lis_graph_cw_merge,
-    case_native_seeding_entries, case_native_dp_poa_expand,
+    case_native_seeding_entries, case_native_dp_poa_expand, case_pad_axis, case_gaf, case_sim2,
+    case_duplicate_multiway, case_dbg, case_hic, case_hic_solve,
 ]
 # cases whose functions reach the native library: run with it and without it
 USES_NATIVE = {

@@ -1,10 +1,12 @@
 """The port stands alone: no file of `hairsplitter_tpu_torch`, nor the scripts
-that drive it on a machine without JAX, imports `jax` or anything of the JAX
-package `hairsplitter_tpu`, at load time or lazily; and the port's CLI runs to
-the end in a process where both are blocked."""
+that drive it on a machine without JAX, imports `jax`, `jaxlib`, `flax`,
+`optax` or anything of the JAX package `hairsplitter_tpu`, at load time or
+lazily; and the port's two CLIs run to the end in a process where all of
+them are blocked."""
 
 import ast
 import glob
+import json
 import os
 import subprocess
 import sys
@@ -16,7 +18,7 @@ from hairsplitter_tpu_torch.io.fasta import write_fasta
 from hairsplitter_tpu_torch.utils import sim
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "hairsplitter_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hairsplitter_tpu")
 
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
@@ -42,6 +44,9 @@ def test_the_port_has_files_to_check():
     assert len(PORT_FILES) > 30
     assert "hairsplitter_tpu_torch/native.py" in PORT_FILES
     assert "hairsplitter_tpu_torch/utils/sim.py" in PORT_FILES
+    for new in ("graphunzip.py", "models/polisher.py", "models/bihap.py", "pipeline/tailor.py", "pipeline/dbg.py",
+                "pipeline/hic.py", "pipeline/hic_solve.py", "io/gaf.py", "utils/sim2.py"):
+        assert f"hairsplitter_tpu_torch/{new}" in PORT_FILES
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -57,17 +62,18 @@ def test_the_import_walker_sees_nested_and_dotted_imports(tmp_path):
         "def f():\n"
         "    from hairsplitter_tpu.io import gfa\n"
         "    import jax.numpy as jnp\n"
+        "    import flax.linen as nn\n"
         "from . import sibling\n"
         "from hairsplitter_tpu_torch import native\n"
     )
     roots = {root for root, _ in _imported_roots(str(src))}
-    assert roots == {"os", "hairsplitter_tpu", "jax", "hairsplitter_tpu_torch"}
+    assert roots == {"os", "hairsplitter_tpu", "jax", "flax", "hairsplitter_tpu_torch"}
 
 
 _BLOCKED = """
 import sys
 
-BLOCKED = ("jax", "jaxlib", "hairsplitter_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "hairsplitter_tpu")
 
 class _Block:
     def find_spec(self, name, path=None, target=None):
@@ -76,7 +82,7 @@ class _Block:
         return None
 
 sys.meta_path.insert(0, _Block())
-from hairsplitter_tpu_torch.cli import main
+from hairsplitter_tpu_torch.%s import main
 
 rc = main(sys.argv[1:])
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
@@ -85,7 +91,17 @@ sys.exit(rc)
 """
 
 
-def test_cli_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+def _run_blocked(module: str, argv: list[str]):
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED % module, *argv],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return proc
+
+
+def _small_dataset(tmp_path):
     rng = np.random.default_rng(2)
     haps = sim.make_haplotypes(8000, 2, 0.01, rng)
     reads = sim.simulate_reads(haps, coverage=10, read_len=3000, rng=rng,
@@ -93,12 +109,37 @@ def test_cli_runs_with_jax_and_the_jax_package_blocked(tmp_path):
     asm, reads_path = str(tmp_path / "asm.fasta"), str(tmp_path / "reads.fasta")
     write_fasta(asm, {"asm": haps[0]})
     sim.write_sim_fasta(reads_path, reads)
+    return asm, reads_path
+
+
+def _check_cli_blocked(tmp_path, flags):
+    asm, reads_path = _small_dataset(tmp_path)
     out = tmp_path / "out"
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED, "-i", asm, "-f", reads_path, "-o", str(out), "--device", "cpu"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
-    )
-    assert proc.returncode == 0, proc.stderr[-3000:]
+    _run_blocked("cli", ["-i", asm, "-f", reads_path, "-o", str(out), "--device", "cpu", *flags])
     assert (out / "hairsplitter_final_assembly.gfa").stat().st_size > 0
-    assert (out / "stage_stats.json").exists()
+    stats = json.loads((out / "stage_stats.json").read_text())
+    assert ("correct_assembly" in stats) == bool(flags)
+    assert (out / "tmp" / "corrected_assembly.gfa").exists() == bool(flags)
+    return out
+
+
+def test_cli_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    _check_cli_blocked(tmp_path, [])
+
+
+def test_cli_with_tailor_and_medaka_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    out = _check_cli_blocked(tmp_path, ["--correct-assembly", "-p", "medaka"])
+    assert "NN base caller" in (out / "hairsplitter.log").read_text()
+
+
+def test_graphunzip_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """`graphunzip unzip -r` on the artifacts of a pipeline run (zipped
+    graph, GAF, reads), mapping on the CPU."""
+    asm, reads_path = _small_dataset(tmp_path)
+    out = tmp_path / "out"
+    _run_blocked("cli", ["-i", asm, "-f", reads_path, "-o", str(out), "--device", "cpu"])
+    unzipped = tmp_path / "unzipped.gfa"
+    proc = _run_blocked("graphunzip", [
+        "unzip", "-g", str(out / "tmp" / "zipped_assembly.gfa"), "-l", str(out / "tmp" / "reads_on_new_contig.gaf"),
+        "-r", reads_path, "-o", str(unzipped), "--supercontigs", str(tmp_path / "super.txt"), "--device", "cpu"])
+    assert unzipped.stat().st_size > 0 and "done:" in proc.stdout

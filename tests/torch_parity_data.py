@@ -5,8 +5,22 @@ and through `hairsplitter_tpu_torch`."""
 from __future__ import annotations
 
 import numpy as np
+import pytest
+import torch
 
 from hairsplitter_tpu.utils import sim
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a test module's torch CPU work on one thread. The plain versions
+    of the kernels are Python loops of small tensor ops: they gain nothing
+    from intra-op threads, and lose an order of magnitude when the thread
+    pools of several test workers spin for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def edge_batch(B: int, T: int, n: int = 32, seed: int = 0):
