@@ -60,6 +60,23 @@ Phases (each prints its result; any failure raises and exits non-zero):
      (GFA byte for byte, the matrix exactly) and K1 must launch on cuda;
   9. bihap: `spectral_phase` on the card against the CPU on a seeded
      two-haplotype allele matrix: the same partition of the reads;
+ 10. distributed (run after phase 6, on its dataset): the 300 kb assembly as
+     three contigs of 100 kb with their two links, through the CLI in this
+     process, through one new process of
+     `python -m hairsplitter_tpu_torch.parallel.distributed` (for a wall
+     time that carries the same start-up) and then through two, both on
+     cuda:0, joined by gloo over 127.0.0.1: process 0's artifacts must be
+     byte-identical to the single-process run's (the SAM as sorted lines
+     under an equal header), process 1 must write nothing but its log and
+     stage statistics, every strain's recovery must be >= 0.95, and each
+     process must report at least one fused K1 launch and no check-mode
+     launch in its log;
+ 11. mesh: on `make_mesh(["cuda:0"])`, `phase_shard_step` at C = 2, Rr = 512,
+     Pp = 2048, S = 256, K = 8, `column_stats_shard_step` on its pileup and
+     `map_shard_step` at 8,192 jobs of the default BandSpec with K1's and
+     K2's kernel: each must equal the same call on `make_mesh(["cpu"])` (the
+     plain versions) bit for bit, the map steps must launch the fused K1 and
+     K2 kernels once each; all are timed with CUDA events;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -68,6 +85,8 @@ from __future__ import annotations
 
 import json
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -202,6 +221,55 @@ def partition(labels: np.ndarray) -> set:
     return {frozenset(np.nonzero(labels == g)[0].tolist()) for g in set(labels.tolist())}
 
 
+DIST_ARTIFACTS = (
+    "tmp/variants.col", "tmp/error_rate.txt", "tmp/reads_haplo.gro", "tmp/zipped_assembly.gfa",
+    "tmp/reads_on_new_contig.gaf", "variants.vcf", "hairsplitter_final_assembly.gfa",
+    "hairsplitter_final_assembly.fasta", "hairsplitter_summary.txt",
+)
+DIST_TIMEOUT = 600  # seconds for the two workers together
+
+
+def sam_parts(path: str):
+    """(header lines, sorted alignment lines) of a SAM file."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return [l for l in lines if l.startswith("@")], sorted(l for l in lines if not l.startswith("@"))
+
+
+def run_processes(repo: str, asm_path: str, reads_path: str, out: str, nproc: int) -> float:
+    """`nproc` new processes of the distributed entry point on cuda:0,
+    rendezvous on a free local port; all are killed if one fails or outlasts
+    the limit. Returns the wall seconds from the first start to the last exit."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-m", "hairsplitter_tpu_torch.parallel.distributed",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", str(nproc), "--process-id", str(rank),
+             "-i", asm_path, "-f", reads_path, "-o", out],
+            cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        for rank in range(nproc)
+    ]
+    outs = []
+    try:
+        for proc in procs:
+            left = DIST_TIMEOUT - (time.perf_counter() - t0)
+            outs.append(proc.communicate(timeout=max(left, 1))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    wall = time.perf_counter() - t0
+    for rank, (proc, text) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, f"distributed process {rank} exited with {proc.returncode}:\n{text[-3000:]}"
+    return wall
+
+
 def build_dataset(root: str):
     """The smoke dataset (`scripts/bench_pipeline.py:build_dataset` defaults):
     300 kb x 3 strains at 1% divergence, 30x of 8 kb reads, 10% error
@@ -292,6 +360,13 @@ def main() -> int:
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
     from hairsplitter_tpu_torch.ops.align_device import (
         align_traceback_rows, banded_fused_plain, myers_fused_plain, readout_device, traceback_scan)
+
+    def reset_launch_counts():
+        """Every kernel wrapper's count to 0: called just before a path is driven."""
+        am.myers_fused_cuda.launches = 0
+        am.myers_rows.launches = 0
+        ad.banded_align_batch_dp.launches = 0
+        ad.banded_fused_cuda.launches = 0
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -518,7 +593,7 @@ def main() -> int:
     from hairsplitter_tpu_torch.core.mapping import MapConfig
     from hairsplitter_tpu_torch.pipeline import orchestrate
 
-    def check_run(out, wall, label):
+    def check_run(out, wall, label, stats_name="stage_stats.json"):
         """Final GFA present, strain recovery >= MIN_RECOVERY; prints the
         stage table. Returns the recovery list."""
         final = os.path.join(out, "hairsplitter_final_assembly.gfa")
@@ -527,7 +602,7 @@ def main() -> int:
         assert g.segments and all(len(s) > 0 for s in g.segments.values())
         ev = evaluate_phasing(g.segments, haps)
         recovery = [float(r) for r in ev.haplotype_recovery]
-        stats = json.load(open(os.path.join(out, "stage_stats.json")))
+        stats = json.load(open(os.path.join(out, stats_name)))
         print(f"[{label}] {wall:.1f} s wall, {len(g.segments)} contigs, "
               f"recovery {recovery}, switch errors {ev.total_switch_errors}", flush=True)
         for stage, entry in stats.items():
@@ -544,10 +619,7 @@ def main() -> int:
               flush=True)
 
         out = os.path.join(root, "out")
-        am.myers_fused_cuda.launches = 0
-        am.myers_rows.launches = 0
-        ad.banded_align_batch_dp.launches = 0
-        ad.banded_fused_cuda.launches = 0
+        reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
@@ -577,10 +649,7 @@ def main() -> int:
 
         orchestrate.map_reads = counted_map_reads  # the stage-2 call site
         try:
-            am.myers_fused_cuda.launches = 0
-            am.myers_rows.launches = 0
-            ad.banded_align_batch_dp.launches = 0
-            ad.banded_fused_cuda.launches = 0
+            reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             orchestrate.run_pipeline(
@@ -635,10 +704,7 @@ def main() -> int:
         nn_calls0, nn_seconds0 = nn.calls, nn.seconds
         orchestrate.correct_assembly = counted_correct_assembly  # the stage-1b call site
         try:
-            am.myers_fused_cuda.launches = 0
-            am.myers_rows.launches = 0
-            ad.banded_align_batch_dp.launches = 0
-            ad.banded_fused_cuda.launches = 0
+            reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rc = cli.main(["-i", broken_path, "-f", reads_path, "-o", out_mt, "--correct-assembly", "-p", "medaka"])
@@ -669,6 +735,76 @@ def main() -> int:
         recovery_mt = check_run(out_mt, wall, "medaka+tailor")
         worst = max(a - b for a, b in zip(recovery_main, recovery_mt))
         assert worst <= 0.005, f"recovery fell by {worst:.4f} against the default run's {recovery_main}"
+
+        # ---- 10. two processes on cuda:0 against one, on three contigs
+        from hairsplitter_tpu_torch.io.gfa import AssemblyGraph, Link, write_gfa
+
+        three = AssemblyGraph()
+        for k in range(3):
+            three.add_segment(f"ctg{k}", haps[0][100_000 * k : 100_000 * (k + 1)])
+        three.add_link(Link("ctg0", "+", "ctg1", "+"))
+        three.add_link(Link("ctg1", "+", "ctg2", "+"))
+        three_path = os.path.join(root, "assembly_three_contigs.gfa")
+        write_gfa(three, three_path)
+        out_one, out_two = os.path.join(root, "out_three_single"), os.path.join(root, "out_three_two_processes")
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(["-i", three_path, "-f", reads_path, "-o", out_one, "--no_clean"])
+        torch.cuda.synchronize()
+        wall_one = time.perf_counter() - t0
+        dist_single_launches = am.myers_fused_cuda.launches
+        assert rc == 0 and dist_single_launches > 0
+        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0
+        print(f"[distributed] single process, three contigs: K1 fused launches {dist_single_launches}", flush=True)
+        check_run(out_one, wall_one, "distributed single")
+
+        repo = os.path.dirname(os.path.abspath(__file__))
+        # the same single-process run from a new process, as the two workers
+        # start: interpreter, torch and CUDA start-up are in its wall time too
+        out_cold = os.path.join(root, "out_three_single_new_process")
+        wall_cold = run_processes(repo, three_path, reads_path, out_cold, 1)
+        with open(os.path.join(out_cold, "hairsplitter_final_assembly.gfa"), "rb") as f1, \
+                open(os.path.join(out_one, "hairsplitter_final_assembly.gfa"), "rb") as f2:
+            assert f1.read() == f2.read(), "the single-process run from a new process gave another final GFA"
+        stats = json.load(open(os.path.join(out_cold, "stage_stats.json")))
+        print(f"[distributed] single process from a new process: {wall_cold:.1f} s from start to exit; stage seconds "
+              + ", ".join(f"{k} {v['seconds']:.3f}" for k, v in stats.items())
+              + f" (sum {sum(v['seconds'] for v in stats.values()):.3f})", flush=True)
+        wall_two = run_processes(repo, three_path, reads_path, out_two, 2)
+        for name in DIST_ARTIFACTS:
+            with open(os.path.join(out_one, name), "rb") as f1, open(os.path.join(out_two, name), "rb") as f2:
+                one, two = f1.read(), f2.read()
+            assert two == one and len(two) > 0, f"{name} of the two-process run differs from the single-process run's"
+        head_one, body_one = sam_parts(os.path.join(out_one, "tmp/reads_on_asm.sam"))
+        head_two, body_two = sam_parts(os.path.join(out_two, "tmp/reads_on_asm.sam"))
+        assert head_two == head_one and body_two == body_one and body_one, \
+            "the two-process SAM differs from the single-process SAM beyond the order of its lines"
+        listing = sorted(os.listdir(out_two))
+        assert [n for n in listing if ".p1." in n] == ["hairsplitter.p1.log", "stage_stats.p1.json"], listing
+        assert sorted(os.listdir(os.path.join(out_two, "tmp"))) == sorted(os.listdir(os.path.join(out_one, "tmp")))
+        dist_launches = []
+        error_rates = []
+        for rank in range(2):
+            with open(os.path.join(out_two, f"hairsplitter.p{rank}.log")) as f:
+                log_text = f.read()
+            counts = dict((k, int(v)) for k, v in re.findall(r"(\w+)=(\d+)", re.findall(r"kernel launches: (.*)", log_text)[-1]))
+            error_rates.append(re.findall(r"global error rate (\S+)", log_text)[0])
+            assert "device: cuda" in log_text, f"process {rank} did not run on the card"
+            assert counts["myers_fused"] > 0, f"process {rank} never launched the fused Myers kernel"
+            assert counts["myers_rows"] == 0 and counts["banded_dp"] == 0, f"process {rank} launched a check-mode kernel"
+            dist_launches.append(counts["myers_fused"])
+            stats = json.load(open(os.path.join(out_two, f"stage_stats.p{rank}.json")))
+            print(f"[distributed] process {rank} on cuda:0: K1 fused launches {counts['myers_fused']}, check-mode "
+                  f"launches K1 {counts['myers_rows']} K2 {counts['banded_dp']}; stage seconds "
+                  + ", ".join(f"{k} {v['seconds']:.3f}" for k, v in stats.items())
+                  + f" (sum {sum(v['seconds'] for v in stats.values()):.3f})", flush=True)
+        assert error_rates[0] == error_rates[1], f"the processes logged different global error rates: {error_rates}"
+        check_run(out_two, wall_two, "distributed two processes", stats_name="stage_stats.p0.json")
+        print(f"[distributed] two processes on one card ({card}): {wall_two:.1f} s from the first start to the last "
+              f"exit (interpreter, torch and CUDA start-up of both included) against {wall_cold:.1f} s for one "
+              f"new process and {wall_one:.1f} s for the single process inside this one; {len(DIST_ARTIFACTS)} artifacts byte-identical, SAM equal as "
+              f"sorted lines ({len(body_one)}), global error rate {error_rates[0]} on both", flush=True)
 
     # ---- 7. the polisher CNN on the card against the CPU
     on_cpu, on_card = polisher.load_weights(device="cpu"), polisher.load_weights(device=dev)
@@ -764,6 +900,52 @@ def main() -> int:
     print(f"[bihap] spectral_phase on a {n_reads} x {n_snps} allele matrix (singular values {sv[0]:.1f}, "
           f"{sv[1]:.1f}): cuda partition == cpu partition == the two haplotypes", flush=True)
 
+    # ---- 11. the sharded steps on a mesh of the one card against a mesh of the CPU
+    from hairsplitter_tpu_torch.parallel.mesh import (
+        column_stats_shard_step, make_mesh, make_phase_example, map_shard_step, phase_shard_step)
+
+    on_card, on_cpu = make_mesh(["cuda:0"]), make_mesh(["cpu"])
+    assert on_card.shape == (1, 1) and on_card.flat() == [torch.device("cuda:0")]
+    example = make_phase_example(C=2, Rr=512, Pp=2048, S=256, K=8)
+    steps = {
+        "phase_shard_step": lambda mesh: phase_shard_step(mesh, example),
+        "column_stats_shard_step": lambda mesh: column_stats_shard_step(mesh, example[0]),
+        "map_shard_step K1": lambda mesh: map_shard_step(mesh, n_per_device=N_CHECK, spec=BandSpec(), kernel="myers"),
+        "map_shard_step K2": lambda mesh: map_shard_step(mesh, n_per_device=N_CHECK, spec=BandSpec(), kernel="pallas"),
+    }
+    reset_launch_counts()
+    placed = {name: make(on_card) for name, make in steps.items()}
+    results = {name: fn(*args) for name, (fn, args) in placed.items()}
+    torch.cuda.synchronize()
+    mesh_k1, mesh_k2 = am.myers_fused_cuda.launches, ad.banded_fused_cuda.launches
+    assert mesh_k1 == 1 and mesh_k2 == 1, f"map_shard_step launched K1 {mesh_k1} and K2 {mesh_k2} times, not once each"
+    assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+        "a sharded step launched a check-mode kernel"
+    for name, make in steps.items():
+        t0 = time.perf_counter()
+        fn_cpu, args_cpu = make(on_cpu)
+        ref, got = fn_cpu(*args_cpu), results[name]
+        cpu_s = time.perf_counter() - t0
+        if name == "phase_shard_step":
+            assert np.float32(got[0]).tobytes() == np.float32(ref[0]).tobytes(), f"err {got[0]!r} != {ref[0]!r}"
+            ref, got = ref[1:], got[1:]
+        elif name.startswith("map"):
+            ref, got = (ref,), (got,)
+        for k, (a, b) in enumerate(zip(got, ref)):
+            assert a.device.type == "cpu" and a.dtype == b.dtype and a.shape == b.shape
+            assert torch.equal(a, b), f"{name}: output {k} on the card differs from the CPU's"
+        fn, args = placed[name]
+        ms = cuda_ms(lambda: fn(*args), 10)
+        shapes = ", ".join(str(tuple(a.shape)) for a in got)
+        print(f"[mesh] {name} on ['cuda:0'] == on ['cpu'] bit for bit ({shapes}); {ms:.4f} ms on the card with "
+              f"its copy to the host (CUDA events), {cpu_s:.2f} s on the CPU with its set-up", flush=True)
+    err_rate = float(results["phase_shard_step"][0])
+    labels = results["phase_shard_step"][2]
+    assert 0.0 < err_rate < 1.0 and all(len(set(l.tolist())) >= 2 for l in labels.reshape(-1, labels.shape[-1]))
+    print(f"[mesh] phase step: err {err_rate:.6f}, every one of the {labels.shape[0] * labels.shape[1]} seeded "
+          f"CW runs splits its {labels.shape[2]} reads; K1 fused launches {mesh_k1}, K2 fused launches {mesh_k2}, "
+          f"check-mode launches 0", flush=True)
+
     def entry(name, source, replaces, n_launches, err, ms, plain_ms):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -773,19 +955,27 @@ def main() -> int:
         }
 
     # times, errors and bounds are the check jobs' (8,192 x B=256); launches
-    # are the main-path runs' (myers_rows and banded_dp are the check modes
-    # of K1 and K2, off the path)
+    # sum the paths this script drives, each from a count set to 0 just before
+    # it: for K1 the default CLI run, the three-contig single-process run, both
+    # processes of the distributed run (read from their logs) and the K1 map
+    # step on the mesh; for K2 the use_myers=False run and the K2 map step on
+    # the mesh (myers_rows and banded_dp are the check modes of K1 and K2, off
+    # every path)
+    k1_paths = (launches, dist_single_launches, *dist_launches, mesh_k1)
+    k2_paths = (k2_launches, mesh_k2)
+    print(f"[launches] K1 fused by path (default run, three contigs single, process 0, process 1, mesh): "
+          f"{k1_paths}; K2 fused (use_myers=False run, mesh): {k2_paths}", flush=True)
     k1_at = "hairsplitter_tpu/ops/align_myers_pallas.py:50"
     k2_at = "hairsplitter_tpu/ops/align_pallas.py:50"
     print(json.dumps({"kernels": [
         entry("myers_rows", "hairsplitter_tpu_torch/csrc/myers_rows.cu", k1_at,
               check_mode_launches, max_err, k_ms, p_ms),
         entry("myers_fused", "hairsplitter_tpu_torch/csrc/myers_fused.cu", k1_at,
-              launches, fused_err, f_ms, fp_ms),
+              sum(k1_paths), fused_err, f_ms, fp_ms),
         entry("banded_dp", "hairsplitter_tpu_torch/csrc/banded_dp.cu", k2_at,
               k2_check_launches, k2_err, k2_ms["enc"], k2_plain_ms["enc"]),
         entry("banded_fused", "hairsplitter_tpu_torch/csrc/banded_fused.cu", k2_at,
-              k2_launches, k2f_err, k2f_ms, k2fp_ms),
+              sum(k2_paths), k2f_err, k2f_ms, k2fp_ms),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Device phasing core: the knee-rule read graph and the seeded
 Chinese-Whispers runs of a batch of windows.
 
-Counterpart of `hairsplitter_tpu/ops/phase.py` (`read_graph_device`,
-`phase_window_core`, `phase_windows_sub_jit`, `phase_windows_jit`), with
-the JAX `vmap` over windows written out as a leading batch axis. Float32
+Counterpart of `hairsplitter_tpu/ops/phase.py` (`sims_diffs_core`,
+`read_graph_device`, `phase_window_core`, `phase_windows_sub_jit`,
+`phase_windows_jit`, `phase_contigs_batch`), with the JAX `vmap` over
+windows written out as a leading batch axis. Float32
 arithmetic and operation order follow the JAX twin, which is bit-identical
 to the native host twin (`native/hs_native.cpp:hs_create_read_graph`).
 """
@@ -14,11 +15,24 @@ import numpy as np
 import torch
 
 from .cluster import chinese_whispers_multi
+from .variants import window_stats_batch
 
 _F32_07 = float(np.float32(0.7))
 _F32_099 = float(np.float32(0.99))
 # MIN_OVERLAP_CAP of pipeline/separate_reads.py (kept in sync, as in the JAX package)
 _OVERLAP_CAP = 18.0
+
+
+def sims_diffs_core(A: torch.Tensor, R: torch.Tensor):
+    """sim = 3*A*At + R*Rt, diff = A*Rt + R*At with zero diagonals
+    (`src/separate_reads.cpp:399-433`) from unpacked f32 0/1 indicators
+    [..., n, S]; int32 [..., n, n] results. Exact at full f32 matmul
+    precision, and additive over a split of the S axis."""
+    At, Rt = A.transpose(-1, -2), R.transpose(-1, -2)
+    sim = 3.0 * (A @ At) + R @ Rt
+    diff = A @ Rt + R @ At
+    off = 1 - torch.eye(A.shape[-2], dtype=torch.float32, device=A.device)
+    return (sim * off).to(torch.int32), (diff * off).to(torch.int32)
 
 
 def read_graph_device(
@@ -93,3 +107,41 @@ def phase_windows(sim, diff, masks, inits, err: float, n_iters: int = 30):
     return phase_window_core(
         sim.expand(G, n, n), diff.expand(G, n, n), masks, inits, err, n_iters
     )
+
+
+def window_error_sums(pileup: torch.Tensor, contig_codes: torch.Tensor):
+    """(mismatched cells, covered cells) of a batch of pileup windows, or of
+    any shard of it, as int64 scalars on the pileup's device: the integer
+    sums of `ops/variants.py:window_stats_batch`."""
+    _, _, _, mism, cov = window_stats_batch(pileup, contig_codes)
+    return mism.sum(), cov.sum()
+
+
+def error_rate_f32(mism: int, cov: int) -> np.float32:
+    """The global error rate from the integer sums: a float32 division, as
+    the JAX twin's (a double division rounded afterwards can differ in the
+    last bit)."""
+    return np.float32(mism) / max(np.float32(cov), np.float32(1.0))
+
+
+def phase_contigs_batch(
+    pileup: torch.Tensor,  # int8 [C, R, P] trimer codes (TRIMER_ABSENT = none)
+    contig_codes: torch.Tensor,  # int8 [C, P]
+    A: torch.Tensor,  # f32 [C, R, S] second-allele indicators
+    Rm: torch.Tensor,  # f32 [C, R, S] majority-allele indicators
+    mask: torch.Tensor,  # bool [C, R]
+    inits: torch.Tensor,  # int32 [C, K, R]
+    n_iters: int = 30,
+):
+    """The full stage-3/4 device step over a batch of contig windows
+    (`ops/phase.py:phase_contigs_batch`): the global error-rate reduction
+    (the reference's omp-critical sum, `src/call_variants.cpp:1310-1316`),
+    contig-level sims/diffs matmuls, and the per-window graph + CW. Returns
+    (err np.float32, adj int8 [C, R, R], labels int64 [C, K, R]).
+    `parallel/mesh.py` runs the same four functions per shard, around its
+    reductions."""
+    mism, cov = window_error_sums(pileup, contig_codes)
+    err = error_rate_f32(int(mism), int(cov))
+    sim, diff = sims_diffs_core(A, Rm)
+    adj, labels = phase_window_core(sim, diff, mask, inits, float(err), n_iters)
+    return err, adj, labels

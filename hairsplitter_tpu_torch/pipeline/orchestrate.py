@@ -11,12 +11,13 @@ Stage-level resume mirrors the reference's `--resume` (`hairsplitter.py:
 whose artifact exists is loaded instead of recomputed; the first missing
 artifact makes all later stages recompute.
 
-Port of `hairsplitter_tpu/pipeline/orchestrate.py` for one process on one
-device (`PipelineConfig.device`, default "cuda"): same stages, artifacts,
-resume fingerprint and stage statistics, `--correct-assembly` (stage 1b,
+Port of `hairsplitter_tpu/pipeline/orchestrate.py` on one device per process
+(`PipelineConfig.device`, default "cuda"): same stages, artifacts, resume
+fingerprint and stage statistics, `--correct-assembly` (stage 1b,
 `pipeline/tailor.py`) and `-p medaka` (the NN base caller of
-`models/polisher.py`) included. Runs across several processes (the JAX
-package's `comm` argument) are not ported yet: ROADMAP.md Queue 1, item 10.
+`models/polisher.py`) included. With the `comm` argument
+(`parallel/distributed.py:Comm`, collectives over gloo) the same code path
+runs across several processes, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -42,6 +43,8 @@ from ..io.fasta import (
     write_fasta,
 )
 from ..io.gfa import (
+    AssemblyGraph,
+    Link,
     bluntify_graph,
     cut_assembly,
     fasta_to_gfa,
@@ -216,18 +219,38 @@ def run_pipeline(
     reads_path: str,
     out_dir: str,
     cfg: PipelineConfig = PipelineConfig(),
+    comm=None,
 ):
-    """Run every stage on `cfg.device`; returns the final GFA path."""
+    """Run every stage on `cfg.device`; returns the final GFA path.
+
+    comm: optional `parallel.distributed.Comm` — when given (and more than
+    one process is up), the SAME code path runs distributed: reads are
+    sharded for mapping, contigs for variants/separation (the reference's
+    OpenMP axis, `call_variants.cpp:1276-1371`), the error rate is a global
+    all-reduce of (mismatch, cell) sums (:1310-1316's omp-critical), and
+    process 0 runs the graph stages and writes every artifact. All presets,
+    low-memory mode, the POA ladder, ploidy capping, COL/GRO artifacts and
+    resume behave exactly as single-process — there is no separate
+    distributed stage sequence to drift. Everything the collectives carry
+    is host data (numpy and Python objects), whatever `cfg.device` is.
+    Returns the final GFA path on process 0, None elsewhere."""
+    if comm is not None and comm.nproc <= 1:
+        comm = None
+    me = comm.me if comm else 0
     device = resolve_device(cfg.device)
     os.makedirs(out_dir, exist_ok=True)
     tmp_dir = os.path.join(out_dir, "tmp")
     os.makedirs(tmp_dir, exist_ok=True)
-    log = Logger(os.path.join(out_dir, "hairsplitter.log"))
-    stats = StageStats(log, os.path.join(out_dir, "stage_stats.json"))
+    log_name = f"hairsplitter.p{me}.log" if comm else "hairsplitter.log"
+    log = Logger(os.path.join(out_dir, log_name))
+    stats_name = f"stage_stats.p{me}.json" if comm else "stage_stats.json"
+    stats = StageStats(log, os.path.join(out_dir, stats_name))
     final_gfa = os.path.join(out_dir, "hairsplitter_final_assembly.gfa")
     final_fasta = os.path.join(out_dir, "hairsplitter_final_assembly.fasta")
     cfg = apply_tech_preset(cfg)
     log.log(f"device: {device}")
+    if comm:
+        log.log(f"distributed run: process {me}/{comm.nproc}")
 
     # resume is honored only when the run fingerprint matches the previous
     # invocation (the reference compares the logged command line,
@@ -241,8 +264,14 @@ def run_pipeline(
             resume = False
     elif resume:
         resume = False
-    with open(fp_path, "w") as f:
-        f.write(fp + "\n")
+    if comm:
+        # every process has read the previous run's fingerprint before process
+        # 0 replaces it: a process that read the file half-written would
+        # decide against resuming alone and leave the others in a collective
+        comm.barrier()
+    if me == 0:
+        with open(fp_path, "w") as f:
+            f.write(fp + "\n")
 
     if resume and os.path.exists(final_gfa):
         log.log("resume: final assembly already present, nothing to do")
@@ -276,8 +305,11 @@ def run_pipeline(
 
     if cfg.min_read_quality > 0 and reads_path.rstrip(".gz").endswith((".fastq", ".fq")):
         filtered = os.path.join(tmp_dir, "filtered_reads.fastq")
-        kept = filter_fastq_by_quality(reads_path, filtered, cfg.min_read_quality)
-        log.log(f"STAGE 0.2 quality filter: kept {kept} reads (>= Q{cfg.min_read_quality})")
+        if me == 0:
+            kept = filter_fastq_by_quality(reads_path, filtered, cfg.min_read_quality)
+            log.log(f"STAGE 0.2 quality filter: kept {kept} reads (>= Q{cfg.min_read_quality})")
+        if comm:
+            comm.barrier()  # non-0 processes read the filtered file
         reads_path = filtered
 
     log.log(f"STAGE 2 loading + mapping reads {reads_path}")
@@ -299,6 +331,11 @@ def run_pipeline(
         if resume and os.path.exists(corrected_path):
             assembly = parse_gfa(corrected_path)
             log.log(f"  resume: corrected assembly loaded from {corrected_path}")
+        elif comm and me != 0:
+            # GenomeTailor is a whole-graph fixpoint: process 0 runs it and
+            # broadcasts the corrected graph
+            assembly = _graph_from_wire(comm.bcast_obj(None))
+            log.log("  corrected assembly received from process 0")
         else:
             log.log("STAGE 1b correcting the assembly (GenomeTailor-equivalent)")
             t0 = time.time()
@@ -311,6 +348,8 @@ def run_pipeline(
             )
             stats.record("correct_assembly", time.time() - t0)
             write_gfa(assembly, corrected_path)
+            if comm:
+                comm.bcast_obj(_graph_to_wire(assembly))
         # N50 sanity check on the corrected assembly (`hairsplitter.py:550-568`)
         lens = sorted((len(s) for s in assembly.segments.values()), reverse=True)
         total = sum(lens)
@@ -326,14 +365,20 @@ def run_pipeline(
             )
 
     sam_path = os.path.join(tmp_dir, "reads_on_asm.sam")
+    # read data parallelism: each process maps its interleaved slice of the
+    # read set against the full index (every read still competes against
+    # every contig exactly as single-process), then alignments are
+    # all-gathered so every process holds the complete set
+    my_reads = list(range(me, len(store), comm.nproc)) if comm else list(range(len(store)))
     if resume and os.path.exists(sam_path):
         alns = parse_sam(sam_path, {store.names[i]: i for i in range(len(store))}, max_clip_frac=1.0)
         log.log(f"  resume: {len(alns)} alignments loaded from {sam_path}")
     else:
         resume = False
         t0 = time.time()
-        if low_memory:
+        if low_memory or comm:
             # stream reads in batches so only one batch is ever resident
+            # (and shard them across processes)
             index = MinimizerIndex.build(
                 {n: encode_seq(s) for n, s in assembly.segments.items()},
                 k=cfg.map.k,
@@ -341,11 +386,12 @@ def run_pipeline(
                 max_occ=cfg.map.max_occ,
             )
             alns = []
-            bs = cfg.low_memory_read_batch
-            for lo in range(0, len(store), bs):
-                idxs = list(range(lo, min(lo + bs, len(store))))
+            bs = cfg.low_memory_read_batch if low_memory else max(1, len(my_reads))
+            for lo in range(0, len(my_reads), bs):
+                idxs = my_reads[lo : lo + bs]
                 batch = [store.get_seq(i) for i in idxs]
-                store.free(idxs)
+                if low_memory:
+                    store.free(idxs)
                 alns.extend(
                     map_reads(
                         assembly.segments, batch, cfg.map, read_indices=idxs, index=index,
@@ -357,14 +403,17 @@ def run_pipeline(
                 assembly.segments, [read_seqs[i] for i in range(len(store))], cfg.map,
                 device=device,
             )
+        if comm:
+            alns = [a for batch in comm.allgather_obj(alns) for a in batch]
         stats.record("mapping", time.time() - t0, read_kbp=total_read_bp / 1e3)
-        write_sam(
-            sam_path,
-            alns,
-            {n: len(s) for n, s in assembly.segments.items()},
-            {i: store.names[i] for i in range(len(store))},
-            read_seqs,
-        )
+        if me == 0:
+            write_sam(
+                sam_path,
+                alns,
+                {n: len(s) for n, s in assembly.segments.items()},
+                {i: store.names[i] for i in range(len(store))},
+                read_seqs,
+            )
     log.log(f"  {len(alns)} alignments for {len(store)} reads")
 
     per_contig_alns: dict[str, list] = {c: [] for c in assembly.segments}
@@ -375,6 +424,12 @@ def run_pipeline(
     for c in per_contig_alns:
         per_contig_alns[c].sort(key=lambda a: (a.read_idx, a.t_start, a.q_start))
     read_names = {i: store.names[i] for i in range(len(store))}
+    # contig data parallelism for stages 3-4 (the reference's OpenMP axis)
+    owned = (
+        set(comm.owned({n: len(s) for n, s in assembly.segments.items()}))
+        if comm
+        else set(assembly.segments)
+    )
 
     # ---- stage 3: variant calling (two-pass for the pooled error rate) ------
     vcfg = cfg.variants
@@ -405,7 +460,7 @@ def run_pipeline(
             pp
             for _, pp in _contig_map(
                 cfg.threads,
-                list(assembly.segments.items()),
+                [it for it in assembly.segments.items() if it[0] in owned],
                 lambda item: (
                     item[0],
                     prepare_contig_host(
@@ -417,10 +472,17 @@ def run_pipeline(
         preps = finish_preps(pending, vcfg, device=device)
         total_mm = sum(p.mismatches for p in preps.values())
         total_cells = sum(p.cells for p in preps.values())
+        if comm:
+            # the reference's omp-critical error-rate accumulation
+            # (`call_variants.cpp:1310-1316`) as a global all-reduce
+            total_mm, total_cells = comm.allreduce_sum(
+                np.asarray([total_mm, total_cells], np.float64)
+            )
         error_rate = min(total_mm / max(1, total_cells), vcfg.error_cap)
-        with open(err_path, "w") as f:
-            f.write(f"{error_rate}\n")
-        log.log(f"  pooled error rate {error_rate:.4f}")
+        if me == 0:
+            with open(err_path, "w") as f:
+                f.write(f"{error_rate}\n")
+        log.log(f"  {'global' if comm else 'pooled'} error rate {error_rate:.4f}")
 
         variants = {}
         n_snps = 0
@@ -429,12 +491,19 @@ def run_pipeline(
                 preps[contig], error_rate, vcfg, device=device
             )
             n_snps += len(variants[contig].columns)
+        if comm:
+            merged: dict[str, ContigVariants] = {}
+            for part in comm.allgather_obj(variants):
+                merged.update(part)
+            variants = {c: merged[c] for c in assembly.segments}
+            n_snps = sum(len(cv.columns) for cv in variants.values())
         stats.record(
             "call_variants", time.time() - t0, pileup_cells=total_cells, snps=n_snps
         )
         log.log(f"  {n_snps} robust variant positions")
-        write_col(col_path, variants, per_contig_alns, read_names)
-        _write_vcf(os.path.join(out_dir, "variants.vcf"), variants)
+        if me == 0:
+            write_col(col_path, variants, per_contig_alns, read_names)
+            _write_vcf(os.path.join(out_dir, "variants.vcf"), variants)
 
     # ---- stage 4: separate reads -------------------------------------------
     scfg = cfg.separate
@@ -456,6 +525,8 @@ def run_pipeline(
         log.log("STAGE 4 separating reads")
         t0 = time.time()
         if cfg.haploid_coverage > 0:
+            # variants (hence depths) are replicated, so the multiplicity
+            # propagation is deterministic on every process
             for contig, cv in variants.items():
                 assembly.depths.setdefault(contig, cv.depth)
             ploidy = determine_multiplicity(assembly, cfg.haploid_coverage)
@@ -471,7 +542,8 @@ def run_pipeline(
                     ploidy[contig] = max(
                         ploidy[contig], round(d / cfg.haploid_coverage)
                     )
-            write_ploidy(os.path.join(tmp_dir, "ploidy.txt"), ploidy)
+            if me == 0:
+                write_ploidy(os.path.join(tmp_dir, "ploidy.txt"), ploidy)
 
         def _sep(contig):
             spans = [(a.t_start, a.t_end) for a in per_contig_alns[contig]]
@@ -481,8 +553,13 @@ def run_pipeline(
             )
 
         groups = dict(
-            _contig_map(cfg.threads, list(assembly.segments), _sep)
+            _contig_map(cfg.threads, [c for c in assembly.segments if c in owned], _sep)
         )
+        if comm:
+            merged_g: dict[str, ContigGroups] = {}
+            for part in comm.allgather_obj(groups):
+                merged_g.update(part)
+            groups = {c: merged_g[c] for c in assembly.segments}
         stats.record("separate_reads", time.time() - t0, reads_phased=len(alns))
         n_sep = sum(
             1
@@ -491,7 +568,14 @@ def run_pipeline(
             if len(set(w.labels[w.labels >= 0].tolist())) > 1
         )
         log.log(f"  {n_sep} windows with >1 haplotype")
-        write_gro(gro_path, groups, per_contig_alns, read_names)
+        if me == 0:
+            write_gro(gro_path, groups, per_contig_alns, read_names)
+
+    if comm and me != 0:
+        # graph surgery + untangling are pointer-chasing host work on data
+        # already reduced by orders of magnitude: process 0 finishes
+        log.log("  shard work done; process 0 finishes the graph stages")
+        return None
 
     # ---- stage 5: create new contigs ---------------------------------------
     log.log("STAGE 5 creating new contigs")
@@ -613,6 +697,23 @@ def run_pipeline(
                     pass
     log.log(f"done: {final_gfa}")
     return final_gfa
+
+
+def _graph_to_wire(g):
+    """AssemblyGraph -> picklable tuple (for cross-process broadcast)."""
+    return (
+        dict(g.segments),
+        dict(g.depths),
+        [(l.name1, l.orient1, l.name2, l.orient2, l.cigar) for l in g.links],
+        {k: list(v) for k, v in g.tags.items()},
+    )
+
+
+def _graph_from_wire(w):
+    segs, depths, links, tags = w
+    g = AssemblyGraph(segments=segs, depths=depths, tags=tags)
+    g.links = [Link(*t) for t in links]
+    return g
 
 
 def _contig_map(threads: int, items, fn):

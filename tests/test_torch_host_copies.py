@@ -467,6 +467,41 @@ def case_hic_solve(pkg, mapped):
             hs.find_anchor_contigs(_diamond(pkg), confident_coverage=False))
 
 
+def case_shard_items(pkg, mapped):
+    d = _mod(pkg, "parallel.distributed")
+    rng = np.random.default_rng(3)
+    out = []
+    for n in (1, 2, 7, 30):
+        # few distinct sizes: ties in size and in load
+        sizes = {f"ctg{int(i)}": int(rng.integers(1, 5)) * 500 for i in rng.permutation(n)}
+        out.append([[d.shard_items(sizes, nproc, p) for p in range(nproc)] for nproc in (1, 2, 3, 4)])
+    return out
+
+
+def case_graph_wire(pkg, mapped):
+    """`_graph_to_wire` / `_graph_from_wire` on a graph with links, depths and
+    tags: the wire form, its pickle, and the graph that comes back."""
+    import pickle
+
+    o = _mod(pkg, "pipeline.orchestrate")
+    graph = _diamond(pkg, mid=("S", "T"))
+    graph.tags["A"] = ["LN:i:2000", "dp:f:10.0"]
+    graph.tags["T"] = ["xx:Z:tag"]
+    graph.add_link(_mod(pkg, "io.gfa").Link("D", "-", "A", "+", "5M"))
+    wire = o._graph_to_wire(graph)
+    back = o._graph_from_wire(pickle.loads(pickle.dumps(wire)))
+    assert back is not graph and back.normalized() == graph.normalized()
+    return (wire, pickle.dumps(wire), list(back.segments.items()), dict(back.depths), dict(back.tags),
+            [(l.name1, l.orient1, l.name2, l.orient2, l.cigar) for l in back.links], back.normalized())
+
+
+def case_mesh_examples(pkg, mapped):
+    m = _mod(pkg, "parallel.mesh")
+    spec = _mod(pkg, "ops.align").BandSpec
+    return (m.make_phase_example(), m.make_phase_example(C=2, Rr=24, Pp=96, S=16, K=3, seed=4),
+            m.make_map_example(48, spec(chunk=64, band=32)), m.make_map_example(8, spec(), seed=2, err=0.1))
+
+
 CASES = [
     case_constants, case_pow2_bucket, case_minimizers, case_find_chains_batch, case_select_pins_native,
     case_cigar, case_gfa, case_fasta, case_sam, case_alignment_datatype, case_build_window_blocks,
@@ -474,7 +509,8 @@ CASES = [
     case_alternative_and_splice_backbone, case_poa_consensus_codes, case_pin_anchors_and_window_cuts,
     case_unzip_graph_helpers, case_sim, case_evaluate_phasing, case_native_lis_graph_cw_merge,
     case_native_seeding_entries, case_native_dp_poa_expand, case_pad_axis, case_gaf, case_sim2,
-    case_duplicate_multiway, case_dbg, case_hic, case_hic_solve,
+    case_duplicate_multiway, case_dbg, case_hic, case_hic_solve, case_shard_items, case_graph_wire,
+    case_mesh_examples,
 ]
 # cases whose functions reach the native library: run with it and without it
 USES_NATIVE = {

@@ -24,7 +24,8 @@ PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", "**", "*.py"), recursive=True)
 ) + ["chip_smoke.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
-     "scripts/kernel_variants.py", "scripts/myers_fused_variants.py", "scripts/banded_fused_variants.py"]
+     "scripts/kernel_variants.py", "scripts/myers_fused_variants.py", "scripts/banded_fused_variants.py",
+     "scripts/torch_two_process_cold_build.py"]
 
 
 def _imported_roots(path: str) -> set[tuple[str, int]]:
@@ -44,7 +45,7 @@ def test_the_port_has_files_to_check():
     assert len(PORT_FILES) > 30
     assert "hairsplitter_tpu_torch/native.py" in PORT_FILES
     assert "hairsplitter_tpu_torch/utils/sim.py" in PORT_FILES
-    for new in ("graphunzip.py", "models/polisher.py", "models/bihap.py", "pipeline/tailor.py", "pipeline/dbg.py",
+    for new in ("parallel/distributed.py", "parallel/mesh.py", "graphunzip.py", "models/polisher.py", "models/bihap.py", "pipeline/tailor.py", "pipeline/dbg.py",
                 "pipeline/hic.py", "pipeline/hic_solve.py", "io/gaf.py", "utils/sim2.py"):
         assert f"hairsplitter_tpu_torch/{new}" in PORT_FILES
 
@@ -83,6 +84,7 @@ class _Block:
 
 sys.meta_path.insert(0, _Block())
 from hairsplitter_tpu_torch.%s import main
+import hairsplitter_tpu_torch.parallel.mesh  # noqa: F401  (the one module no entry point loads)
 
 rc = main(sys.argv[1:])
 assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
@@ -143,3 +145,15 @@ def test_graphunzip_runs_with_jax_and_the_jax_package_blocked(tmp_path):
         "unzip", "-g", str(out / "tmp" / "zipped_assembly.gfa"), "-l", str(out / "tmp" / "reads_on_new_contig.gaf"),
         "-r", reads_path, "-o", str(unzipped), "--supercontigs", str(tmp_path / "super.txt"), "--device", "cpu"])
     assert unzipped.stat().st_size > 0 and "done:" in proc.stdout
+
+
+def test_distributed_entry_point_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    """`python -m hairsplitter_tpu_torch.parallel.distributed` as one process
+    of one: no process group, the single-process file names."""
+    asm, reads_path = _small_dataset(tmp_path)
+    out = tmp_path / "out"
+    _run_blocked("parallel.distributed", ["--num-processes", "1", "--process-id", "0", "--device", "cpu",
+                                          "-i", asm, "-f", reads_path, "-o", str(out)])
+    assert (out / "hairsplitter_final_assembly.gfa").stat().st_size > 0
+    assert (out / "stage_stats.json").exists() and not (out / "stage_stats.p0.json").exists()
+    assert "kernel launches: myers_fused=0" in (out / "hairsplitter.log").read_text()
