@@ -77,6 +77,22 @@ Phases (each prints its result; any failure raises and exits non-zero):
      K2's kernel: each must equal the same call on `make_mesh(["cpu"])` (the
      plain versions) bit for bit, the map steps must launch the fused K1 and
      K2 kernels once each; all are timed with CUDA events;
+ 12. train: the polisher's training on the card. (a) Two realistic training
+     pairs (plain and hp-biased reads, L = 2048) mapped on cuda must equal
+     the pairs mapped on the CPU byte for byte; (b) one Adam step from the
+     same initial weights on one seeded batch (4 x 256): loss and every
+     parameter on cuda within 1e-5 of the CPU's (a batch of 8 x 512, where
+     some gradients cancel to within Adam's eps, is printed beside the CPU's
+     own distance from the float64 step); (c) two 20-step trainings on cuda with
+     one seed must give bit-identical weights; (d) the training of
+     `scripts/train_polisher.py` at its full size (800 steps, 48 realistic
+     pairs) through `scripts/torch_train_polisher.py` into a temporary file:
+     its held-out column accuracy must beat plain majority and reach 0.99;
+     K1 must launch, its check mode never;
+ 13. quality: the 1 Mbp metagenome of `scripts/torch_eval_quality.py`
+     (4 of its 10 species x 100 kb, 30x of 8 kb reads, 10% error) on cuda:
+     min strain recovery >= 0.95 and at most 1 switch error
+     (`eval_quality.py`'s targets); K1 must launch, its check mode never;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 """
@@ -98,6 +114,12 @@ B = 256  # main-path chunk (BandSpec.chunk)
 N_CHECK = 8192  # jobs of the kernel-vs-plain check
 N_FUSED = 32768  # jobs of the fused-call timing (~ stage 2 of the smoke dataset)
 MIN_RECOVERY = 0.95
+MIN_HELD_OUT = 0.99  # the polisher's held-out column accuracy (JAX record 0.9934)
+# the metagenome's species: 4 of scripts/eval_quality.py's 10 (10 strains, ~12
+# Mbp of reads), its depth cut so that the whole script stays near 300 s of
+# command time (at 10 species it took 349.5 s, PERF.md §4); contig length,
+# coverage and error are the scenario's own
+QUALITY_SPECIES = 4
 
 
 def random_jobs(rng: np.random.Generator, n: int, spec):
@@ -321,6 +343,18 @@ def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / INT32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def load_script(name: str):
+    """A module of the repo's `scripts/` folder, loaded by its path (the
+    folder is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -946,6 +980,101 @@ def main() -> int:
           f"CW runs splits its {labels.shape[2]} reads; K1 fused launches {mesh_k1}, K2 fused launches {mesh_k2}, "
           f"check-mode launches 0", flush=True)
 
+    # ---- 12. training the polisher on the card
+    train_mod = load_script("torch_train_polisher")
+    # (a) the realistic corpus is integer work up to the features: a pair
+    # mapped on the card equals the pair mapped on the CPU byte for byte
+    for hp_bias in (False, True):
+        pairs = [polisher._realistic_training_pair(np.random.default_rng(21), L=2048, hp_bias=hp_bias, device=d)
+                 for d in ("cpu", dev)]
+        for name, a, b in zip(("features", "labels", "weights"), *pairs):
+            assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes(), \
+                f"realistic training pair (hp_bias={hp_bias}): {name} on the card differ from the CPU's"
+        print(f"[train] (a) realistic pair, hp_bias={hp_bias}, L=2048 -> {pairs[0][1].size} columns: features, "
+              f"labels and weights mapped on cuda == on cpu byte for byte", flush=True)
+    # (b) one Adam step from the same initial weights (seed 0) on a seeded
+    # batch, on the card and on the CPU, and on the CPU in float64
+    def one_adam_step(seed, n, L, keep, d, dtype=torch.float32):
+        rng = np.random.default_rng(seed)
+        xs, ys = zip(*(polisher._simulate_training_batch(rng, L=L) for _ in range(n)))
+        x, y, w = (torch.from_numpy(a) for a in (np.stack(xs), np.stack(ys), (rng.random((n, L)) < keep).astype(np.float32)))
+        model = polisher.PolisherCNN()
+        polisher.init_params(model, torch.Generator().manual_seed(0))
+        model.to(device=d, dtype=dtype)
+        opt = polisher.make_optimizer(model, 1e-3)
+        with polisher.deterministic_convolutions():
+            loss = polisher.train_step(model, opt, x.to(d, dtype), y.to(d), w.to(d, dtype))
+        grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()}
+        return float(loss), {k: v.detach().double().cpu() for k, v in model.state_dict().items()}, grads
+
+    def step_diff(a, b):
+        """Largest difference of the loss and of any parameter after the step,
+        and the parameter and the gradient of `b` where the largest is."""
+        worst = (abs(a[0] - b[0]), "loss", 0.0)
+        for k in a[1]:
+            d = (a[1][k] - b[1][k]).abs()
+            i = int(d.argmax())
+            worst = max(worst, (float(d.flatten()[i]), k, float(b[2][k].flatten()[i])))
+        return worst
+
+    step_err, where, _ = step_diff(one_adam_step(11, 4, 256, 0.8, dev), one_adam_step(11, 4, 256, 0.8, "cpu"))
+    assert step_err <= 1e-5, f"one Adam step on the card differs from the CPU's by {step_err:.3e} at {where} (limit 1e-5)"
+    print(f"[train] (b) one Adam step from the same initial weights, batch 4 x 256: loss and every parameter "
+          f"cuda vs cpu within {step_err:.3e} (largest at {where}; limit 1e-5)", flush=True)
+    # The first Adam step moves a weight by lr * g / (|g| + eps): where a
+    # gradient is a sum that cancels to within a few eps of zero, its float
+    # noise is magnified up to lr / (4 eps) = 25,000 times. This larger batch
+    # has such weights; the card is shown beside the CPU's own float32 error.
+    big = {d: one_adam_step(31, 8, 512, 0.9, d) for d in ("cpu", dev)}
+    exact = one_adam_step(31, 8, 512, 0.9, "cpu", torch.float64)
+    card_cpu = step_diff(big[dev], big["cpu"])
+    print(f"[train] (b) the same at batch 8 x 512: cuda vs cpu {card_cpu[0]:.3e} at {card_cpu[1]} (gradient there "
+          f"{card_cpu[2]:.2e}); cuda vs the float64 step {step_diff(big[dev], exact)[0]:.3e}, cpu vs the float64 "
+          f"step {step_diff(big['cpu'], exact)[0]:.3e} (Adam's eps 1e-8)", flush=True)
+    # (c) one seed, two runs on the card: the same weights bit for bit
+    runs = [polisher.train_polisher(seed=0, steps=20, device=dev).model.state_dict() for _ in range(2)]
+    assert all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0]), \
+        "two 20-step trainings on the card with one seed gave different weights"
+    print("[train] (c) two 20-step synthetic trainings on cuda with seed 0: every parameter bit-identical", flush=True)
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cudnn.deterministic, \
+        "training left cuDNN's flags changed"
+    # (d) scripts/train_polisher.py's training at its full size, on the card
+    with tempfile.TemporaryDirectory(prefix="hs_smoke_train_") as root:
+        reset_launch_counts()
+        trained = train_mod.train_and_check(os.path.join(root, "w.npz"), device=dev)
+        train_k1 = am.myers_fused_cuda.launches
+        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+            "the training launched a check-mode kernel"
+        assert os.path.getsize(os.path.join(root, "w.npz")) > 0
+    print(f"[train] (d) {trained['steps']} steps on {trained['pairs']} realistic pairs on cuda ({card}): "
+          f"training {trained['training_s']:.2f} s = corpus {trained['corpus_s']:.3f} s "
+          f"({trained['corpus_k1_launches']} K1 fused launches) + steps {trained['steps_s']:.3f} s "
+          f"({trained['ms_per_step']:.4f} ms per step); held-out accuracy {trained['held_out_accuracy']:.5f} "
+          f"vs majority {trained['held_out_majority']:.5f} ({trained['held_out_k1_launches']} K1 fused launches, "
+          f"{trained['held_out_s']:.2f} s); JAX record 0.9934 vs 0.9894", flush=True)
+    assert train_k1 == trained["corpus_k1_launches"] + trained["held_out_k1_launches"] and train_k1 > 0
+    assert trained["held_out_accuracy"] > trained["held_out_majority"], "the trained net does not beat majority"
+    assert trained["held_out_accuracy"] >= MIN_HELD_OUT, \
+        f"held-out accuracy {trained['held_out_accuracy']:.5f} < {MIN_HELD_OUT}"
+
+    # ---- 13. the 1 Mbp metagenome of scripts/torch_eval_quality.py
+    quality_mod = load_script("torch_eval_quality")
+    with tempfile.TemporaryDirectory(prefix="hs_smoke_quality_") as root:
+        reset_launch_counts()
+        quality = quality_mod.run_scenario("metagenome", root, 0, device="cuda", n_species=QUALITY_SPECIES)
+        quality_k1 = am.myers_fused_cuda.launches
+        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+            "the metagenome run launched a check-mode kernel"
+    assert quality_k1 == quality["k1_launches"] and quality_k1 > 0, "the metagenome run never launched K1"
+    print(f"[quality] metagenome, {QUALITY_SPECIES} species x 100 kb, 30x of 8 kb reads, 10% error, seed 0: "
+          f"{quality['reads']} reads, {quality['read_mbp']:.2f} Mbp; {quality['wall_s']:.1f} s wall on cuda ({card}), "
+          f"K1 fused launches {quality_k1}; contigs {quality['contigs']}, N50 {quality['n50']} "
+          f"(JAX record at 10 species: 35 contigs, N50 100000), recovery mean {quality['recovery_mean']}, "
+          f"min {quality['recovery_min']}, switch errors {quality['switches']}; stage seconds "
+          + ", ".join(f"{k} {v:.3f}" for k, v in quality["stages"].items()), flush=True)
+    assert quality["recovery_min"] >= MIN_RECOVERY, f"metagenome: min recovery {quality['recovery_min']}"
+    assert quality["switches"] <= 1, f"metagenome: {quality['switches']} switch errors"
+
     def entry(name, source, replaces, n_launches, err, ms, plain_ms):
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -959,11 +1088,13 @@ def main() -> int:
     # it: for K1 the default CLI run, the three-contig single-process run, both
     # processes of the distributed run (read from their logs) and the K1 map
     # step on the mesh; for K2 the use_myers=False run and the K2 map step on
-    # the mesh (myers_rows and banded_dp are the check modes of K1 and K2, off
-    # every path)
-    k1_paths = (launches, dist_single_launches, *dist_launches, mesh_k1)
+    # the mesh, the polisher's training (its corpus and held-out check) and the
+    # metagenome (myers_rows and banded_dp are the check modes of K1 and K2,
+    # off every path)
+    k1_paths = (launches, dist_single_launches, *dist_launches, mesh_k1, train_k1, quality_k1)
     k2_paths = (k2_launches, mesh_k2)
-    print(f"[launches] K1 fused by path (default run, three contigs single, process 0, process 1, mesh): "
+    print(f"[launches] K1 fused by path (default run, three contigs single, process 0, process 1, mesh, "
+          f"training, metagenome): "
           f"{k1_paths}; K2 fused (use_myers=False run, mesh): {k2_paths}", flush=True)
     k1_at = "hairsplitter_tpu/ops/align_myers_pallas.py:50"
     k2_at = "hairsplitter_tpu/ops/align_pallas.py:50"

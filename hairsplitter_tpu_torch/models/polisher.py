@@ -24,6 +24,7 @@ from __future__ import annotations
 import math
 import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -295,6 +296,23 @@ def make_optimizer(model: PolisherCNN, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+@contextmanager
+def deterministic_convolutions():
+    """cuDNN with deterministic algorithms and no autotuning, for the extent
+    of a training loop. Some of cuDNN's weight-gradient convolutions add
+    with atomics, so one seed would not give the same weights bit for bit
+    from run to run, as XLA's do. Only these two flags are set and restored:
+    `torch.backends.cudnn.flags()` would also reset TF32 to its own default
+    (on), and the inference path keeps the global settings."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+
+
 def train_polisher(
     seed: int = 0,
     steps: int = 300,
@@ -305,13 +323,18 @@ def train_polisher(
     n_pairs: int = 48,
     *,
     device,
+    timings: dict | None = None,
 ) -> NNPolisher:
     """Train the polisher on `device`. realistic=True draws (feature, label)
     pairs from the production alignment+pileup path on indel-rich simulated
     reads (the shipped default weights are trained this way);
     realistic=False keeps the fast synthetic generator for unit tests. The
     data comes from numpy's `default_rng(seed)` exactly as in the JAX
-    package; the initial weights from a `torch.Generator` seeded the same."""
+    package; the initial weights from a CPU `torch.Generator` seeded the
+    same, on every device. The loss stays on the device: no step waits for
+    the card. `timings`, if given, receives `corpus_seconds` (the realistic
+    pairs, mapped on `device`), `train_seconds` (the steps, up to the last
+    one's end on the card) and `steps`."""
     device = torch.device(device)
     rng = np.random.default_rng(seed)
     model = PolisherCNN()
@@ -322,6 +345,7 @@ def train_polisher(
     def step(x, y, w):
         return train_step(model, opt, *(torch.from_numpy(a).to(device) for a in (x, y, w)))
 
+    t0 = time.perf_counter()
     if realistic:
         # generate the corpus once (mapping-heavy), then shuffle mini-batches
         pool_x, pool_y, pool_w = [], [], []
@@ -342,18 +366,25 @@ def train_polisher(
         pool_x = np.stack(pool_x)
         pool_y = np.stack(pool_y)
         pool_w = np.stack(pool_w)
-        for it in range(steps):
-            sel = rng.integers(0, len(pool_x), batch)
-            step(pool_x[sel], pool_y[sel], pool_w[sel])
-    else:
-        ones = np.ones((batch, L), np.float32)
-        for it in range(steps):
-            xs, ys = [], []
-            for _ in range(batch):
-                f, l = _simulate_training_batch(rng, L=L)
-                xs.append(f)
-                ys.append(l)
-            step(np.stack(xs), np.stack(ys), ones)
+    t1 = time.perf_counter()
+    with deterministic_convolutions():
+        if realistic:
+            for it in range(steps):
+                sel = rng.integers(0, len(pool_x), batch)
+                step(pool_x[sel], pool_y[sel], pool_w[sel])
+        else:
+            ones = np.ones((batch, L), np.float32)
+            for it in range(steps):
+                xs, ys = [], []
+                for _ in range(batch):
+                    f, l = _simulate_training_batch(rng, L=L)
+                    xs.append(f)
+                    ys.append(l)
+                step(np.stack(xs), np.stack(ys), ones)
+    if timings is not None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings.update(corpus_seconds=t1 - t0, train_seconds=time.perf_counter() - t1, steps=steps)
     model.eval()
     return NNPolisher(model=model, device=device)
 

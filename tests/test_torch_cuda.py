@@ -4,7 +4,9 @@ plain PyTorch versions, and the fused call and
 `map_reads` on the GPU against the same functions on the CPU, for both DP
 kernels; and the paths off the main one on the GPU against the CPU: the
 polisher CNN (logits atol/rtol 1e-4, bases above a top-two margin of 1e-3),
-`correct_assembly` and `spectral_phase` (equal). Every test is marked `cuda` and skips without a GPU (the kernels
+`correct_assembly` and `spectral_phase` (equal), and the polisher's
+training: its realistic corpus (equal byte for byte), one Adam step (within
+1e-5) and two trainings with one seed (equal bit for bit). Every test is marked `cuda` and skips without a GPU (the kernels
 have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a machine without JAX:
@@ -263,3 +265,49 @@ def test_spectral_phase_on_the_card_equals_the_cpu(cuda):
         for lab in (spectral_phase(cols, 80, n_haplotypes=2, device=d) for d in ("cpu", cuda))
     ]
     assert parts[0] == parts[1] and len(parts[0]) == 2
+
+
+@pytest.mark.parametrize("hp_bias", [False, True], ids=["sim", "sim2"])
+def test_realistic_training_pair_on_the_card_equals_the_cpu(cuda, hp_bias):
+    """The corpus is integer work up to the features: mapped on the card, a
+    pair equals the CPU's byte for byte, and the mapping went through K1."""
+    from hairsplitter_tpu_torch.models import polisher as P
+
+    ref = P._realistic_training_pair(np.random.default_rng(2), L=1024, hp_bias=hp_bias, device="cpu")
+    before = am.myers_fused_cuda.launches
+    got = P._realistic_training_pair(np.random.default_rng(2), L=1024, hp_bias=hp_bias, device=cuda)
+    assert am.myers_fused_cuda.launches > before
+    for a, b in zip(got, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def test_one_adam_step_on_the_card_equals_the_cpu(cuda):
+    from hairsplitter_tpu_torch.models import polisher as P
+
+    rng = np.random.default_rng(11)
+    xs, ys = zip(*(P._simulate_training_batch(rng, L=256) for _ in range(4)))
+    batch = (np.stack(xs), np.stack(ys), (rng.random((4, 256)) < 0.8).astype(np.float32))
+    results = []
+    for device in ("cpu", cuda):
+        model = P.PolisherCNN()
+        P.init_params(model, torch.Generator().manual_seed(0))
+        model.to(device)
+        opt = P.make_optimizer(model, 1e-3)
+        with P.deterministic_convolutions():
+            loss = P.train_step(model, opt, *(torch.from_numpy(a).to(device) for a in batch))
+        assert loss.device.type == torch.device(device).type  # the loss stays on its device
+        results.append((float(loss), P.params_to_jax(model.state_dict())))
+    (ref_loss, ref), (got_loss, got) = results
+    assert abs(got_loss - ref_loss) < 1e-5
+    for k in ref:
+        np.testing.assert_allclose(got[k], ref[k], atol=1e-5, rtol=0, err_msg=k)
+
+
+def test_two_trainings_on_the_card_with_one_seed_are_equal(cuda):
+    from hairsplitter_tpu_torch.models import polisher as P
+
+    runs = [P.train_polisher(seed=0, steps=20, batch=8, L=512, device=cuda).model.state_dict() for _ in range(2)]
+    assert all(v.is_cuda for v in runs[0].values())
+    for k in runs[0]:
+        assert torch.equal(runs[0][k], runs[1][k]), k
+    assert not torch.backends.cudnn.deterministic and not torch.backends.cudnn.allow_tf32

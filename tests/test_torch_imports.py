@@ -1,8 +1,10 @@
 """The port stands alone: no file of `hairsplitter_tpu_torch`, nor the scripts
 that drive it on a machine without JAX, imports `jax`, `jaxlib`, `flax`,
 `optax` or anything of the JAX package `hairsplitter_tpu`, at load time or
-lazily; and the port's two CLIs run to the end in a process where all of
-them are blocked."""
+lazily; and the port's two CLIs, its distributed entry point and its scripts
+`scripts/torch_train_polisher.py`, `torch_eval_quality.py` and
+`torch_demo.py` run to the end in a process where all of them are
+blocked."""
 
 import ast
 import glob
@@ -25,7 +27,8 @@ PORT_FILES = sorted(
     for p in glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", "**", "*.py"), recursive=True)
 ) + ["chip_smoke.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
      "scripts/kernel_variants.py", "scripts/myers_fused_variants.py", "scripts/banded_fused_variants.py",
-     "scripts/torch_two_process_cold_build.py"]
+     "scripts/torch_two_process_cold_build.py", "scripts/torch_train_polisher.py",
+     "scripts/torch_eval_quality.py", "scripts/torch_demo.py", "scripts/profile_torch_training.py"]
 
 
 def _imported_roots(path: str) -> set[tuple[str, int]]:
@@ -71,7 +74,8 @@ def test_the_import_walker_sees_nested_and_dotted_imports(tmp_path):
     assert roots == {"os", "hairsplitter_tpu", "jax", "flax", "hairsplitter_tpu_torch"}
 
 
-_BLOCKED = """
+_BLOCKER = """
+import runpy
 import sys
 
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "hairsplitter_tpu")
@@ -83,20 +87,38 @@ class _Block:
         return None
 
 sys.meta_path.insert(0, _Block())
+"""
+_NOTHING_BLOCKED_LOADED = """
+assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
+    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+"""
+# an entry point of the port, `main(argv)`
+_BLOCKED = _BLOCKER + """
 from hairsplitter_tpu_torch.%s import main
 import hairsplitter_tpu_torch.parallel.mesh  # noqa: F401  (the one module no entry point loads)
 
 rc = main(sys.argv[1:])
-assert not any(m.split(".")[0] in BLOCKED for m in sys.modules), sorted(
-    m for m in sys.modules if m.split(".")[0] in BLOCKED)
+""" + _NOTHING_BLOCKED_LOADED + """
 sys.exit(rc)
 """
+# a script, run as `__main__` with the arguments after its path
+_BLOCKED_SCRIPT = _BLOCKER + """
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(sys.argv[0], run_name="__main__")
+except SystemExit as stop:
+    assert stop.code in (0, None), stop.code
+""" + _NOTHING_BLOCKED_LOADED
 
 
 def _run_blocked(module: str, argv: list[str]):
+    """`hairsplitter_tpu_torch.<module>:main`, or the script at `scripts/<module>`
+    run as `__main__`, with `argv`, in a new process that blocks every
+    forbidden package."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    code = (_BLOCKED_SCRIPT, os.path.join(REPO, "scripts", module)) if module.endswith(".py") else (_BLOCKED % module,)
     proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED % module, *argv],
+        [sys.executable, "-c", *code, *argv],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -157,3 +179,29 @@ def test_distributed_entry_point_runs_with_jax_and_the_jax_package_blocked(tmp_p
     assert (out / "hairsplitter_final_assembly.gfa").stat().st_size > 0
     assert (out / "stage_stats.json").exists() and not (out / "stage_stats.p0.json").exists()
     assert "kernel launches: myers_fused=0" in (out / "hairsplitter.log").read_text()
+
+
+def test_train_polisher_script_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    out = tmp_path / "w.npz"
+    proc = _run_blocked("torch_train_polisher.py", ["--device", "cpu", "--steps", "2", "--pairs", "1", "--out", str(out)])
+    assert out.stat().st_size > 0
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["steps"] == 2 and 0 < res["held_out_accuracy"] <= 1
+
+
+@pytest.mark.parametrize("scenario", ["metagenome", "skewed"])
+def test_eval_quality_script_runs_with_jax_and_the_jax_package_blocked(scenario):
+    """Each scenario at a toy size (two 8 kb species; three 8 kb strains)."""
+    size = ["--species", "2"] if scenario == "metagenome" else ["--rare-cov", "8"]
+    proc = _run_blocked("torch_eval_quality.py", [scenario, "--device", "cpu", "--length", "8000", *size])
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res["scenario"] == scenario and res["device"] == "cpu" and res["contigs"] > 0
+    assert res["k1_launches"] == 0 and "separate_reads" in res["stages"]
+    assert len(res["recovery"]) == 3 if scenario == "skewed" else res["recovery_min"] > 0
+
+
+def test_demo_script_runs_with_jax_and_the_jax_package_blocked(tmp_path):
+    proc = _run_blocked("torch_demo.py", ["--device", "cpu", "--length", "8000", "--strains", "2",
+                                          "--coverage", "8", "--out", str(tmp_path)])
+    assert "switch errors:" in proc.stdout and "on cpu" in proc.stdout
+    assert (tmp_path / "out" / "hairsplitter_final_assembly.gfa").stat().st_size > 0
