@@ -93,12 +93,21 @@ Phases (each prints its result; any failure raises and exits non-zero):
      (4 of its 10 species x 100 kb, 30x of 8 kb reads, 10% error) on cuda:
      min strain recovery >= 0.95 and at most 1 switch error
      (`eval_quality.py`'s targets); K1 must launch, its check mode never;
+ 14. bench: the kernel blocks of `bench_torch.py` on cuda at their sizes
+     (`fused_production_rate` with K1 and with K2, `transfer_profile`,
+     `raw_kernel_rate`, which launches K1's check mode), their dicts printed;
+     then `bench_torch.main` with its size table cut to `BENCH_TOY` must print
+     exactly one JSON line with a positive headline and no failed or skipped
+     block. This phase is no path: its launches, counted from 0 just before
+     it, go on a `[launches]` line of their own and into no path's count;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -120,6 +129,15 @@ MIN_HELD_OUT = 0.99  # the polisher's held-out column accuracy (JAX record 0.993
 # command time (at 10 species it took 349.5 s, PERF.md §4); contig length,
 # coverage and error are the scenario's own
 QUALITY_SPECIES = 4
+# bench_torch.main's sizes in the bench phase: the contract, not a measurement
+BENCH_TOY = {
+    "fused_jobs": 2048,
+    "fused_single_jobs": 256,
+    "raw_kernel_jobs": 256,
+    "mapping": dict(size=20_000, coverage=4, read_len=4000),
+    "pipeline": dict(length=20_000, strains=2, coverage=8, read_len=4000),
+    "quality": dict(length=20_000, coverage=20, read_len=4000),
+}
 
 
 def random_jobs(rng: np.random.Generator, n: int, spec):
@@ -389,6 +407,7 @@ def main() -> int:
     import hairsplitter_tpu_torch  # noqa: F401  (sets full-precision f32 matmuls)
     from hairsplitter_tpu_torch import native
     from hairsplitter_tpu_torch.ops import _build
+    from hairsplitter_tpu_torch.core.mapping import fused_call_host
     from hairsplitter_tpu_torch.ops.align import BandSpec
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
@@ -563,8 +582,7 @@ def main() -> int:
 
     def call_as_run_jobs():
         """The copies and the call as `core/mapping.py:run_jobs` makes them."""
-        arrays = [torch.from_numpy(x).to(dev) for x in (q, qlens, t, tlens, modes_np)]
-        return align_traceback_rows(*arrays, spec, "myers").cpu().numpy()
+        return fused_call_host((q, qlens, t, tlens, modes_np), spec, "myers", dev)
 
     call_as_run_jobs()
     t0 = time.perf_counter()
@@ -1074,6 +1092,44 @@ def main() -> int:
           + ", ".join(f"{k} {v:.3f}" for k, v in quality["stages"].items()), flush=True)
     assert quality["recovery_min"] >= MIN_RECOVERY, f"metagenome: min recovery {quality['recovery_min']}"
     assert quality["switches"] <= 1, f"metagenome: {quality['switches']} switch errors"
+
+    # ---- 14. bench_torch.py's kernel blocks and its one-line contract; no
+    # path: its launches are counted apart
+    import bench_torch
+
+    reset_launch_counts()
+    bench_blocks = {
+        "fused_production_rate K1": bench_torch.fused_production_rate(spec, "myers", dev),
+        "fused_production_rate K2": bench_torch.fused_production_rate(spec, "pallas", dev),
+        "transfer_profile": bench_torch.transfer_profile(spec, dev),
+        "raw_kernel_rate": bench_torch.raw_kernel_rate(spec, dev),
+    }
+    for name, res in bench_blocks.items():
+        print(f"[bench] {name} on cuda ({card}): {res}", flush=True)
+    assert bench_blocks["fused_production_rate K1"]["cells_per_s"] > 0
+    assert bench_blocks["raw_kernel_rate"]["raw_kernel_cells_per_s"] > 0
+    cuda_sizes = bench_torch.SIZES["cuda"]
+    bench_torch.SIZES["cuda"] = BENCH_TOY
+    printed = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = bench_torch.main([])
+        bench_s = time.perf_counter() - t0
+    finally:
+        bench_torch.SIZES["cuda"] = cuda_sizes
+    lines = printed.getvalue().splitlines()
+    assert rc == 0 and len(lines) == 1, f"bench_torch.main returned {rc} and printed {len(lines)} lines: {lines[-3:]}"
+    line = json.loads(lines[0])
+    failed = [k for k in line["detail"] if k.endswith(("_error", "_skipped"))]
+    assert line["metric"] == "banded_align_DP_cells_per_s" and line["value"] > 0 and not failed, failed
+    assert line["detail"]["device"] == card
+    print(f"[bench] bench_torch.main at toy sizes on cuda: one JSON line, headline {line['value']} cells/s at "
+          f"{BENCH_TOY['fused_jobs']} jobs, no failed or skipped block, {bench_s:.1f} s", flush=True)
+    print(f"[launches] bench phase (no path): K1 fused {am.myers_fused_cuda.launches}, K1 check mode "
+          f"{am.myers_rows.launches}, K2 fused {ad.banded_fused_cuda.launches}, K2 check mode "
+          f"{ad.banded_align_batch_dp.launches}", flush=True)
+    assert am.myers_rows.launches > 0, "raw_kernel_rate never launched K1's check mode"
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms):
         return {

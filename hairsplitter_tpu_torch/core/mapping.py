@@ -160,6 +160,15 @@ def dp_kernel(cfg: MapConfig) -> str:
     return "pallas"
 
 
+def fused_call_host(arrays, spec: BandSpec, kernel: str, device) -> np.ndarray:
+    """One fused call with its copies, as `run_jobs` makes it: the packed
+    host arrays (q, q_lens, t, t_lens, modes) copied to `device` from
+    pageable memory, `align_traceback_rows`, and the fused rows copied back
+    into a numpy array."""
+    dev = [torch.from_numpy(x).to(device) for x in arrays]
+    return align_traceback_rows(*dev, spec, kernel).cpu().numpy()
+
+
 def run_jobs(jobs: list[_Job], cfg: MapConfig, device) -> list[dict]:
     """Align all jobs with the fused call on `device`; per-job expanded ops,
     cost and trailing-query soft clip."""
@@ -170,8 +179,7 @@ def run_jobs(jobs: list[_Job], cfg: MapConfig, device) -> list[dict]:
     for lo in range(0, len(jobs), MAX_JOBS_PER_LAUNCH):
         sub = jobs[lo : lo + MAX_JOBS_PER_LAUNCH]
         qb, tb, qlens, tlens, modes = _pack_jobs(sub, B, T)
-        dev = [torch.from_numpy(x).to(device) for x in (qb, qlens, tb, tlens, modes)]
-        fused = align_traceback_rows(*dev, spec, kernel).cpu().numpy()
+        fused = fused_call_host((qb, qlens, tb, tlens, modes), spec, kernel, device)
         ops_list, cost, clip = expand_rows_host(fused, qb, tb, spec)
         for i, job in enumerate(sub):
             ops = ops_list[i]

@@ -6,8 +6,10 @@ kernels; and the paths off the main one on the GPU against the CPU: the
 polisher CNN (logits atol/rtol 1e-4, bases above a top-two margin of 1e-3),
 `correct_assembly` and `spectral_phase` (equal), and the polisher's
 training: its realistic corpus (equal byte for byte), one Adam step (within
-1e-5) and two trainings with one seed (equal bit for bit). Every test is marked `cuda` and skips without a GPU (the kernels
-have no CPU mode).
+1e-5) and two trainings with one seed (equal bit for bit); and the headline
+block of `bench_torch.py` (a positive rate, the buffer of the call it times
+equal to the plain composition's). Every test is marked `cuda` and skips
+without a GPU (the kernels have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a machine without JAX:
 
@@ -311,3 +313,17 @@ def test_two_trainings_on_the_card_with_one_seed_are_equal(cuda):
     for k in runs[0]:
         assert torch.equal(runs[0][k], runs[1][k]), k
     assert not torch.backends.cudnn.deterministic and not torch.backends.cudnn.allow_tf32
+
+
+def test_bench_headline_block_on_the_card(cuda, monkeypatch):
+    """`bench_torch.fused_production_rate` at 2,048 jobs, the size of its
+    single call: a positive rate, and the fused call it times on
+    `bench_batch` gives the plain composition's buffer."""
+    import bench_torch
+
+    monkeypatch.setitem(bench_torch.SIZES, "cuda", dict(bench_torch.SIZES["cuda"], fused_jobs=2048))
+    res = bench_torch.fused_production_rate(SPEC, "myers", cuda)
+    assert res["cells_per_s"] > 0 and res["fused_single_cells_per_s"] > 0
+    assert res["fused_jobs"] == 2048 and res["fused_kernel"] == "myers"
+    batch = bench_torch.bench_batch(SPEC, 2048, cuda)
+    assert torch.equal(align_traceback_rows(*batch, SPEC, "myers"), myers_fused_plain(*batch, SPEC))

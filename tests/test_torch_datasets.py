@@ -11,7 +11,13 @@ simulators, seeds and configurations; the `rng` fixture there is
   * sim2_diploid: tests/test_sim2_evidence.py:test_sim2_diploid_split (50 kb,
     reads of the independent simulator `utils/sim2`);
   * mock_metagenome: tests/test_metagenome.py:test_mock_metagenome (4 species
-    x 15 kb, exact HiFi-like reads, `-x hifi`).
+    x 15 kb, exact HiFi-like reads, `-x hifi`);
+  * stress: tests/test_stress_quality.py:stress_dataset (three strains at
+    1.0/0.3/0.05, homopolymer-biased indels, 2% chimeras, uniform edges),
+    the scored dataset of `bench.py:quality_block`, cut in length and
+    coverage only;
+  * robust: tests/test_robustness.py:test_pipeline_with_n_bases_and_gz_reads
+    (N bases and lowercase in the assembly, gzipped reads).
 The reduced scenarios of `scripts/torch_eval_quality.py` are the cases of
 tests/test_torch_datasets_quality.py.
 
@@ -20,6 +26,7 @@ tests/test_torch_pipeline_flags.py; the port runs the same configuration on
 the CPU. Tolerance: every artifact byte-identical, the same files in both
 output trees."""
 
+import gzip
 import os
 
 import numpy as np
@@ -106,11 +113,50 @@ def _mock_metagenome(root):
     return asm_path, reads_path, dict(technology="hifi")
 
 
+def _stress(root):
+    # the stress dataset at 10 kb and 100x base coverage (5x on the rare
+    # strain) in place of 30 kb at 280x, so that the case stays near 30 s
+    # on one thread; strains, abundances, error model, read length and seed
+    # are tests/test_stress_quality.py's own
+    rng = np.random.default_rng(3)
+    haps = sim.make_haplotypes(10_000, 3, 0.01, rng)
+    reads = sim.simulate_reads(
+        haps, coverage=100, read_len=8000, rng=rng,
+        sub_rate=0.06, ins_rate=0.02, del_rate=0.02,
+        abundances=[1.0, 0.3, 0.05], homopolymer_bias=1.0, chimera_rate=0.02,
+        uniform_edges=True,
+    )
+    asm_path, reads_path = os.path.join(root, "asm.fa"), os.path.join(root, "reads.fa")
+    write_fasta(asm_path, {"asm": haps[0]})
+    sim.write_sim_fasta(reads_path, reads)
+    return asm_path, reads_path, {}
+
+
+def _robust(root):
+    # tests/test_robustness.py's dataset, drawn from seed 0 (its `rng`
+    # fixture is default_rng(0))
+    rng = np.random.default_rng(0)
+    consensus = sim.make_haplotypes(4000, 1, 0.001, rng)[0]
+    hap2, _ = sim.mutate(consensus, 0.01, rng)
+    reads = sim.simulate_reads([consensus, hap2], coverage=12, read_len=1500, rng=rng)
+    dirty = consensus[:100] + "NNNN" + consensus[104:2000].lower() + consensus[2000:]
+    asm = AssemblyGraph()
+    asm.add_segment("ctg", dirty, depth=24)
+    asm_path, reads_path = os.path.join(root, "a.gfa"), os.path.join(root, "r.fa.gz")
+    write_gfa(asm, asm_path)
+    with gzip.open(reads_path, "wt") as f:
+        for name, seq in zip(reads.names, reads.seqs):
+            f.write(f">{name}\n{seq}\n")
+    return asm_path, reads_path, {}
+
+
 DATASETS = {
     "two_strains": _two_strains,
     "hifi": _hifi,
     "sim2_diploid": _sim2_diploid,
     "mock_metagenome": _mock_metagenome,
+    "stress": _stress,
+    "robust": _robust,
 }
 
 

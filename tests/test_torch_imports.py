@@ -1,10 +1,10 @@
 """The port stands alone: no file of `hairsplitter_tpu_torch`, nor the scripts
 that drive it on a machine without JAX, imports `jax`, `jaxlib`, `flax`,
 `optax` or anything of the JAX package `hairsplitter_tpu`, at load time or
-lazily; and the port's two CLIs, its distributed entry point and its scripts
-`scripts/torch_train_polisher.py`, `torch_eval_quality.py` and
-`torch_demo.py` run to the end in a process where all of them are
-blocked."""
+lazily; and the port's two CLIs, its distributed entry point, its bench
+`bench_torch.py` and its scripts `scripts/torch_train_polisher.py`,
+`torch_eval_quality.py` and `torch_demo.py` run to the end in a process where
+all of them are blocked."""
 
 import ast
 import glob
@@ -25,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hairsplitter_tpu")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", "**", "*.py"), recursive=True)
-) + ["chip_smoke.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
+) + ["chip_smoke.py", "bench_torch.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
      "scripts/kernel_variants.py", "scripts/myers_fused_variants.py", "scripts/banded_fused_variants.py",
      "scripts/torch_two_process_cold_build.py", "scripts/torch_train_polisher.py",
      "scripts/torch_eval_quality.py", "scripts/torch_demo.py", "scripts/profile_torch_training.py"]
@@ -110,13 +110,33 @@ except SystemExit as stop:
     assert stop.code in (0, None), stop.code
 """ + _NOTHING_BLOCKED_LOADED
 
+# the port's bench, `bench_torch.main`, with the CPU's sizes from the first
+# argument and every timer at one window of one call
+_BLOCKED_BENCH = _BLOCKER + """
+import json
+
+import bench_torch
+
+bench_torch.SIZES["cpu"] = json.loads(sys.argv[1])
+timer = bench_torch.time_calls
+bench_torch.time_calls = lambda fn, device, windows, iters, host_clock=False: timer(fn, device, 1, 1, host_clock)
+rc = bench_torch.main(sys.argv[2:])
+""" + _NOTHING_BLOCKED_LOADED + """
+sys.exit(rc)
+"""
+
 
 def _run_blocked(module: str, argv: list[str]):
-    """`hairsplitter_tpu_torch.<module>:main`, or the script at `scripts/<module>`
-    run as `__main__`, with `argv`, in a new process that blocks every
-    forbidden package."""
+    """`hairsplitter_tpu_torch.<module>:main`, the script at `scripts/<module>`
+    run as `__main__`, or with `module` "bench_torch" the bench, with `argv`,
+    in a new process that blocks every forbidden package."""
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    code = (_BLOCKED_SCRIPT, os.path.join(REPO, "scripts", module)) if module.endswith(".py") else (_BLOCKED % module,)
+    if module == "bench_torch":
+        code = (_BLOCKED_BENCH,)
+    elif module.endswith(".py"):
+        code = (_BLOCKED_SCRIPT, os.path.join(REPO, "scripts", module))
+    else:
+        code = (_BLOCKED % module,)
     proc = subprocess.run(
         [sys.executable, "-c", *code, *argv],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
@@ -205,3 +225,15 @@ def test_demo_script_runs_with_jax_and_the_jax_package_blocked(tmp_path):
                                           "--coverage", "8", "--out", str(tmp_path)])
     assert "switch errors:" in proc.stdout and "on cpu" in proc.stdout
     assert (tmp_path / "out" / "hairsplitter_final_assembly.gfa").stat().st_size > 0
+
+
+def test_bench_runs_with_jax_and_the_jax_package_blocked():
+    """`bench_torch.py --device cpu` at the toy size of tests/test_torch_bench.py."""
+    from tests.test_torch_bench import TOY
+
+    proc = _run_blocked("bench_torch", [json.dumps(TOY), "--device", "cpu"])
+    lines = proc.stdout.splitlines()
+    assert len(lines) == 1
+    line = json.loads(lines[0])
+    assert line["value"] > 0 and line["detail"]["device"] == "cpu"
+    assert not [k for k in line["detail"] if k.endswith(("_error", "_skipped"))]
