@@ -27,6 +27,7 @@ from ..io.cigar import compress_cigar
 
 from ..ops.align import Q_SENTINEL, T_SENTINEL, BandSpec
 from ..ops.align_device import align_traceback_rows, expand_rows_host
+from ..utils import tracing
 
 # jobs per fused call. At B = 256 the fused Myers kernel allocates 0.6 GB for
 # a full call (its walk scratch is 32 B per row and job, plus inputs and the
@@ -203,13 +204,16 @@ def map_reads(
 ) -> list[Alignment]:
     """Map every read against the contig set; returns accepted Alignments
     (`core/mapping.py:map_reads`: same restrict=, pinned= and short-minimizer
-    rescue semantics). The DP runs on `device`."""
-    contig_codes = {n: encode_seq(s) for n, s in contigs.items()}
-    if index is None and pinned is None:
-        # with restriction, homologous drafts share minimizers: scale the
-        # repetitiveness cutoff so shared seeds survive the joint index
-        occ = cfg.max_occ * (max(1, len(contigs)) if restrict is not None else 1)
-        index = MinimizerIndex.build(contig_codes, k=cfg.k, w=cfg.w, max_occ=occ, hpc=cfg.hpc)
+    rescue semantics). The DP runs on `device`. Its steps are spans
+    (`utils/tracing.py`) under the caller's: index, chain (with the reads'
+    encoding), plan, align, assemble and rescue."""
+    with tracing.span("index"):
+        contig_codes = {n: encode_seq(s) for n, s in contigs.items()}
+        if index is None and pinned is None:
+            # with restriction, homologous drafts share minimizers: scale the
+            # repetitiveness cutoff so shared seeds survive the joint index
+            occ = cfg.max_occ * (max(1, len(contigs)) if restrict is not None else 1)
+            index = MinimizerIndex.build(contig_codes, k=cfg.k, w=cfg.w, max_occ=occ, hpc=cfg.hpc)
     if read_indices is None:
         read_indices = list(range(len(read_seqs)))
     restrict_by_idx = (
@@ -221,140 +225,145 @@ def map_reads(
     B = cfg.spec.chunk
     dr = cfg.spec.dr
 
-    all_codes = (
-        read_codes
-        if read_codes is not None
-        else [encode_seq(seq) for seq in read_seqs]
-    )
-    if pinned is not None:
-        named_chains = [
-            [
-                (cname, strand, qa, ta)
-                for cname, strand, qa, ta in read_pins
-                if cname in contig_codes and qa.size >= 2
-            ]
-            for read_pins in pinned
-        ]
-    else:
-        allowed_cids = None
-        if restrict_by_idx is not None:
-            name_to_cid = {n: i for i, n in enumerate(index.contig_names)}
-            allowed_cids = [
-                name_to_cid.get(restrict_by_idx[ridx], -1) for ridx in read_indices
-            ]
-        all_chains = find_chains_batch(
-            index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids
+    with tracing.span("chain", reads=len(read_seqs)):
+        all_codes = (
+            read_codes
+            if read_codes is not None
+            else [encode_seq(seq) for seq in read_seqs]
         )
-        named_chains = [
-            [
-                (index.contig_names[ch.contig_id], ch.strand, ch.q_anchors, ch.t_anchors)
-                for ch in read_chains
+        if pinned is not None:
+            named_chains = [
+                [
+                    (cname, strand, qa, ta)
+                    for cname, strand, qa, ta in read_pins
+                    if cname in contig_codes and qa.size >= 2
+                ]
+                for read_pins in pinned
             ]
-            for read_chains in all_chains
-        ]
-    for ridx, codes, read_chains in zip(read_indices, all_codes, named_chains):
-        for cname, strand, q_anchors, t_anchors in read_chains:
-            if restrict_by_idx is not None and cname != restrict_by_idx[ridx]:
-                continue
-            oriented = codes if strand == 1 else revcomp_codes(codes)
-            tcodes = contig_codes[cname]
-            pins = select_pins(q_anchors, t_anchors, cfg)
-            plan = {
-                "read_idx": ridx,
-                "contig": cname,
-                "strand": strand,
-                "qlen": len(codes),
-                "pins": pins,
-                "jobs": [],  # (job_index, kind)
-            }
-            q0, t0 = pins[0]
-            # left extension (reversed), pinned at the first anchor
-            p_used = min(q0, B)
-            if p_used > 0 and t0 > 0:
-                t_lo = max(0, t0 - (p_used + dr))
-                jobs.append(
-                    _Job(
-                        q=oriented[q0 - p_used : q0][::-1].copy(),
-                        t=tcodes[t_lo:t0][::-1].copy(),
-                        mode=1,
-                        reversed_=True,
-                    )
-                )
-                plan["jobs"].append((len(jobs) - 1, "left"))
-            # global chunks between pins
-            for (qa, ta), (qb2, tb2) in zip(pins[:-1], pins[1:]):
-                jobs.append(
-                    _Job(q=oriented[qa:qb2].copy(), t=tcodes[ta:tb2].copy(), mode=0, reversed_=False)
-                )
-                plan["jobs"].append((len(jobs) - 1, "mid"))
-            # right extension from the last pin to the read end
-            qe, te = pins[-1]
-            s_used = min(len(codes) - qe, B)
-            if s_used > 0 and te < len(tcodes):
-                t_hi = min(len(tcodes), te + s_used + dr)
-                jobs.append(
-                    _Job(q=oriented[qe : qe + s_used].copy(), t=tcodes[te:t_hi].copy(), mode=1, reversed_=False)
-                )
-                plan["jobs"].append((len(jobs) - 1, "right"))
-            plans.append(plan)
-
-    job_results = run_jobs(jobs, cfg, device)
-
-    alignments: list[Alignment] = []
-    for plan in plans:
-        pins = plan["pins"]
-        qlen = plan["qlen"]
-        q_start_o, t_start = pins[0]
-        q_end_o, t_end = pins[-1]
-        parts = []
-        nm = 0
-        # order: left first (so q_start/t_start are fixed before mids), then right
-        for jid, kind in plan["jobs"]:
-            r = job_results[jid]
-            ops = r["ops"]
-            nm += r["cost"]
-            if kind == "left":
-                # ops were reversed already; any soft clip falls off the far
-                # (left) end of the walk, so consumption is just what's in ops
-                cq = int(np.sum(ops != 3))  # '=','X','I' consume query
-                ct = int(np.sum(ops != 2))  # '=','X','D' consume target
-                q_start_o = pins[0][0] - cq
-                t_start = pins[0][1] - ct
-                parts.insert(0, ops)
-            elif kind == "mid":
-                parts.append(ops)
-            else:  # right
-                cq = int(np.sum(ops != 3))
-                ct = int(np.sum(ops != 2))
-                q_end_o = pins[-1][0] + cq
-                t_end = pins[-1][1] + ct
-                parts.append(ops)
-        expanded = np.concatenate(parts) if parts else np.zeros(0, np.int8)
-        if expanded.size == 0:
-            continue
-        cops, clens = compress_cigar(expanded)
-        aligned_len = int(expanded.size)
-        if aligned_len == 0 or nm > cfg.max_divergence * aligned_len:
-            continue
-        # convert oriented-read coords to forward-read coords
-        if plan["strand"] == 1:
-            q_start, q_end = q_start_o, q_end_o
         else:
-            q_start, q_end = qlen - q_end_o, qlen - q_start_o
-        alignments.append(
-            Alignment(
-                read_idx=plan["read_idx"],
-                contig=plan["contig"],
-                strand=plan["strand"],
-                q_start=int(q_start),
-                q_end=int(q_end),
-                t_start=int(t_start),
-                t_end=int(t_end),
-                cigar_ops=cops,
-                cigar_lens=clens,
-                nm=int(nm),
+            allowed_cids = None
+            if restrict_by_idx is not None:
+                name_to_cid = {n: i for i, n in enumerate(index.contig_names)}
+                allowed_cids = [
+                    name_to_cid.get(restrict_by_idx[ridx], -1) for ridx in read_indices
+                ]
+            all_chains = find_chains_batch(
+                index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids
             )
-        )
+            named_chains = [
+                [
+                    (index.contig_names[ch.contig_id], ch.strand, ch.q_anchors, ch.t_anchors)
+                    for ch in read_chains
+                ]
+                for read_chains in all_chains
+            ]
+    with tracing.span("plan") as sp:
+        for ridx, codes, read_chains in zip(read_indices, all_codes, named_chains):
+            for cname, strand, q_anchors, t_anchors in read_chains:
+                if restrict_by_idx is not None and cname != restrict_by_idx[ridx]:
+                    continue
+                oriented = codes if strand == 1 else revcomp_codes(codes)
+                tcodes = contig_codes[cname]
+                pins = select_pins(q_anchors, t_anchors, cfg)
+                plan = {
+                    "read_idx": ridx,
+                    "contig": cname,
+                    "strand": strand,
+                    "qlen": len(codes),
+                    "pins": pins,
+                    "jobs": [],  # (job_index, kind)
+                }
+                q0, t0 = pins[0]
+                # left extension (reversed), pinned at the first anchor
+                p_used = min(q0, B)
+                if p_used > 0 and t0 > 0:
+                    t_lo = max(0, t0 - (p_used + dr))
+                    jobs.append(
+                        _Job(
+                            q=oriented[q0 - p_used : q0][::-1].copy(),
+                            t=tcodes[t_lo:t0][::-1].copy(),
+                            mode=1,
+                            reversed_=True,
+                        )
+                    )
+                    plan["jobs"].append((len(jobs) - 1, "left"))
+                # global chunks between pins
+                for (qa, ta), (qb2, tb2) in zip(pins[:-1], pins[1:]):
+                    jobs.append(
+                        _Job(q=oriented[qa:qb2].copy(), t=tcodes[ta:tb2].copy(), mode=0, reversed_=False)
+                    )
+                    plan["jobs"].append((len(jobs) - 1, "mid"))
+                # right extension from the last pin to the read end
+                qe, te = pins[-1]
+                s_used = min(len(codes) - qe, B)
+                if s_used > 0 and te < len(tcodes):
+                    t_hi = min(len(tcodes), te + s_used + dr)
+                    jobs.append(
+                        _Job(q=oriented[qe : qe + s_used].copy(), t=tcodes[te:t_hi].copy(), mode=1, reversed_=False)
+                    )
+                    plan["jobs"].append((len(jobs) - 1, "right"))
+                plans.append(plan)
+        sp.add(jobs=len(jobs))
+
+    with tracing.span("align", jobs=len(jobs)):
+        job_results = run_jobs(jobs, cfg, device)
+
+    with tracing.span("assemble"):
+        alignments: list[Alignment] = []
+        for plan in plans:
+            pins = plan["pins"]
+            qlen = plan["qlen"]
+            q_start_o, t_start = pins[0]
+            q_end_o, t_end = pins[-1]
+            parts = []
+            nm = 0
+            # order: left first (so q_start/t_start are fixed before mids), then right
+            for jid, kind in plan["jobs"]:
+                r = job_results[jid]
+                ops = r["ops"]
+                nm += r["cost"]
+                if kind == "left":
+                    # ops were reversed already; any soft clip falls off the far
+                    # (left) end of the walk, so consumption is just what's in ops
+                    cq = int(np.sum(ops != 3))  # '=','X','I' consume query
+                    ct = int(np.sum(ops != 2))  # '=','X','D' consume target
+                    q_start_o = pins[0][0] - cq
+                    t_start = pins[0][1] - ct
+                    parts.insert(0, ops)
+                elif kind == "mid":
+                    parts.append(ops)
+                else:  # right
+                    cq = int(np.sum(ops != 3))
+                    ct = int(np.sum(ops != 2))
+                    q_end_o = pins[-1][0] + cq
+                    t_end = pins[-1][1] + ct
+                    parts.append(ops)
+            expanded = np.concatenate(parts) if parts else np.zeros(0, np.int8)
+            if expanded.size == 0:
+                continue
+            cops, clens = compress_cigar(expanded)
+            aligned_len = int(expanded.size)
+            if aligned_len == 0 or nm > cfg.max_divergence * aligned_len:
+                continue
+            # convert oriented-read coords to forward-read coords
+            if plan["strand"] == 1:
+                q_start, q_end = q_start_o, q_end_o
+            else:
+                q_start, q_end = qlen - q_end_o, qlen - q_start_o
+            alignments.append(
+                Alignment(
+                    read_idx=plan["read_idx"],
+                    contig=plan["contig"],
+                    strand=plan["strand"],
+                    q_start=int(q_start),
+                    q_end=int(q_end),
+                    t_start=int(t_start),
+                    t_end=int(t_end),
+                    cigar_ops=cops,
+                    cigar_lens=clens,
+                    nm=int(nm),
+                )
+            )
 
     rescue_cfg = None
     if pinned is not None:
@@ -369,18 +378,19 @@ def map_reads(
         unmapped = [i for i in read_indices if i not in mapped]
         if unmapped:
             by_idx = dict(zip(read_indices, read_seqs))
-            alignments.extend(
-                map_reads(
-                    contigs,
-                    [by_idx[i] for i in unmapped],
-                    rescue_cfg,
-                    read_indices=unmapped,
-                    restrict=(
-                        [restrict_by_idx[i] for i in unmapped]
-                        if restrict_by_idx is not None
-                        else None
-                    ),
-                    device=device,
+            with tracing.span("rescue", reads=len(unmapped)):
+                alignments.extend(
+                    map_reads(
+                        contigs,
+                        [by_idx[i] for i in unmapped],
+                        rescue_cfg,
+                        read_indices=unmapped,
+                        restrict=(
+                            [restrict_by_idx[i] for i in unmapped]
+                            if restrict_by_idx is not None
+                            else None
+                        ),
+                        device=device,
+                    )
                 )
-            )
     return alignments

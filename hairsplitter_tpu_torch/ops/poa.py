@@ -16,6 +16,7 @@ from ..constants import decode_seq, encode_seq
 from ..core.mapping import MapConfig, map_reads
 from ..io.cigar import expand_cigar
 from ..pipeline.pileup import orient_read
+from ..utils import tracing
 from .consensus import polish_iterative
 
 
@@ -167,108 +168,113 @@ def polish_poa_multi(
         act = [g for g in range(G) if active[g]]
         if not act:
             break
-        contigs = {f"d{g}": cur[g] for g in act}
-        flat_reads: list[str] = []
-        flat_codes: list[np.ndarray] = []
-        owner: list[int] = []
-        restrict: list[str] = []
-        flat_base: dict[int, int] = {}
-        for g in act:
-            if g not in flat_codes_cache:
-                flat_codes_cache[g] = [encode_seq(r) for r in read_lists[g]]
-            flat_base[g] = len(flat_reads)
-            flat_reads.extend(read_lists[g])
-            flat_codes.extend(flat_codes_cache[g])
-            owner.extend([g] * len(read_lists[g]))
-            restrict.extend([f"d{g}"] * len(read_lists[g]))
-        pinned = None
-        if rnd == 0 and init_alns is not None and init_frames is not None:
-            pinned = []
+        with tracing.span("pins"):
+            contigs = {f"d{g}": cur[g] for g in act}
+            flat_reads: list[str] = []
+            flat_codes: list[np.ndarray] = []
+            owner: list[int] = []
+            restrict: list[str] = []
+            flat_base: dict[int, int] = {}
             for g in act:
-                t_off, t_len = init_frames[g]
-                for i, r in enumerate(read_lists[g]):
-                    a = init_alns[g][i] if i < len(init_alns[g]) else None
-                    pair = (
-                        _pin_anchors(a, len(r), t_off, t_len, len(cur[g]))
-                        if a is not None
-                        else None
-                    )
-                    pinned.append(
-                        [(f"d{g}", a.strand, pair[0], pair[1])] if pair is not None else []
-                    )
-        elif prev_alns is not None:
-            pinned = [[] for _ in flat_reads]
-            for g in act:
-                if g not in prev_alns:
-                    continue
-                for i, per_read in enumerate(prev_alns[g]):
-                    chains = []
-                    for a in per_read:
-                        pair = _pin_anchors(
-                            a, len(read_lists[g][i]), 0, prev_len[g], len(cur[g])
+                if g not in flat_codes_cache:
+                    flat_codes_cache[g] = [encode_seq(r) for r in read_lists[g]]
+                flat_base[g] = len(flat_reads)
+                flat_reads.extend(read_lists[g])
+                flat_codes.extend(flat_codes_cache[g])
+                owner.extend([g] * len(read_lists[g]))
+                restrict.extend([f"d{g}"] * len(read_lists[g]))
+            pinned = None
+            if rnd == 0 and init_alns is not None and init_frames is not None:
+                pinned = []
+                for g in act:
+                    t_off, t_len = init_frames[g]
+                    for i, r in enumerate(read_lists[g]):
+                        a = init_alns[g][i] if i < len(init_alns[g]) else None
+                        pair = (
+                            _pin_anchors(a, len(r), t_off, t_len, len(cur[g]))
+                            if a is not None
+                            else None
                         )
-                        if pair is not None:
-                            chains.append((f"d{g}", a.strand, pair[0], pair[1]))
-                    pinned[flat_base[g] + i] = chains
+                        pinned.append(
+                            [(f"d{g}", a.strand, pair[0], pair[1])] if pair is not None else []
+                        )
+            elif prev_alns is not None:
+                pinned = [[] for _ in flat_reads]
+                for g in act:
+                    if g not in prev_alns:
+                        continue
+                    for i, per_read in enumerate(prev_alns[g]):
+                        chains = []
+                        for a in per_read:
+                            pair = _pin_anchors(
+                                a, len(read_lists[g][i]), 0, prev_len[g], len(cur[g])
+                            )
+                            if pair is not None:
+                                chains.append((f"d{g}", a.strand, pair[0], pair[1]))
+                        pinned[flat_base[g] + i] = chains
         draft_len_now = {g: len(cur[g]) for g in act}
-        alns = map_reads(
-            contigs, flat_reads, cfg, restrict=restrict, pinned=pinned,
-            read_codes=flat_codes, device=device,
-        )
-        prev_alns = {g: [[] for _ in read_lists[g]] for g in act}
-        for a in alns:
-            g = owner[a.read_idx]
-            prev_alns[g][a.read_idx - flat_base[g]].append(a)
-        prev_len = draft_len_now
-
-        dcodes = {g: encode_seq(cur[g]) for g in act}
-        nwin = {g: (len(dcodes[g]) + window - 1) // window for g in act}
-        frags: dict[int, list[list[np.ndarray]]] = {
-            g: [[] for _ in range(nwin[g])] for g in act
-        }
-        seen_alns = {g: False for g in act}
-        for a in alns:
-            g = owner[a.read_idx]
-            seen_alns[g] = True
-            L = len(dcodes[g])
-            oriented = orient_read(flat_codes[a.read_idx], a.strand)
-            w_first, cuts = _window_cuts(a, len(oriented), window, L)
-            for i in range(len(cuts) - 1):
-                w = w_first + i
-                if w >= nwin[g]:
-                    break
-                lo, hi = int(cuts[i]), int(cuts[i + 1])
-                if hi - lo >= min_frag:
-                    frags[g][w].append(oriented[lo:hi])
-        # collect every group's POA windows into one threaded native batch
-        pieces: dict[int, list[np.ndarray | None]] = {g: [None] * nwin[g] for g in act}
-        jobs: list[list[np.ndarray]] = []
-        job_key: list[tuple[int, int]] = []
-        job_cov: list[int] = []
-        for g in act:
-            L = len(dcodes[g])
-            for w in range(nwin[g]):
-                backbone = dcodes[g][w * window : min(L, (w + 1) * window)]
-                layers = frags[g][w]
-                if len(layers) < 2:  # racon: windows with <3 layers keep the backbone
-                    pieces[g][w] = backbone
-                    continue
-                jobs.append([backbone] + layers)
-                job_key.append((g, w))
-                cov = max(0, len(layers) // 2)  # racon's window coverage trim
-                if not end_trim and (w == 0 or w == nwin[g] - 1):
-                    cov = 1  # keep covered terminal columns (junction fills)
-                job_cov.append(cov)
-        if jobs:
-            res = native.poa_consensus_batch(
-                jobs, POA_MATCH, POA_MISMATCH, POA_GAP, min_covs=job_cov
+        with tracing.span("remap", reads=len(flat_reads)):
+            alns = map_reads(
+                contigs, flat_reads, cfg, restrict=restrict, pinned=pinned,
+                read_codes=flat_codes, device=device,
             )
-            if res is None:
-                res = [poa_consensus_codes(ls, min_cov=c) for ls, c in zip(jobs, job_cov)]
-            for (g, w), cons in zip(job_key, res):
+        with tracing.span("cut"):
+            prev_alns = {g: [[] for _ in read_lists[g]] for g in act}
+            for a in alns:
+                g = owner[a.read_idx]
+                prev_alns[g][a.read_idx - flat_base[g]].append(a)
+            prev_len = draft_len_now
+
+            dcodes = {g: encode_seq(cur[g]) for g in act}
+            nwin = {g: (len(dcodes[g]) + window - 1) // window for g in act}
+            frags: dict[int, list[list[np.ndarray]]] = {
+                g: [[] for _ in range(nwin[g])] for g in act
+            }
+            seen_alns = {g: False for g in act}
+            for a in alns:
+                g = owner[a.read_idx]
+                seen_alns[g] = True
                 L = len(dcodes[g])
-                backbone = dcodes[g][w * window : min(L, (w + 1) * window)]
-                pieces[g][w] = cons if cons is not None and cons.size else backbone
+                oriented = orient_read(flat_codes[a.read_idx], a.strand)
+                w_first, cuts = _window_cuts(a, len(oriented), window, L)
+                for i in range(len(cuts) - 1):
+                    w = w_first + i
+                    if w >= nwin[g]:
+                        break
+                    lo, hi = int(cuts[i]), int(cuts[i + 1])
+                    if hi - lo >= min_frag:
+                        frags[g][w].append(oriented[lo:hi])
+        with tracing.span("poa") as sp:
+            # collect every group's POA windows into one threaded native batch
+            pieces: dict[int, list[np.ndarray | None]] = {g: [None] * nwin[g] for g in act}
+            jobs: list[list[np.ndarray]] = []
+            job_key: list[tuple[int, int]] = []
+            job_cov: list[int] = []
+            for g in act:
+                L = len(dcodes[g])
+                for w in range(nwin[g]):
+                    backbone = dcodes[g][w * window : min(L, (w + 1) * window)]
+                    layers = frags[g][w]
+                    if len(layers) < 2:  # racon: windows with <3 layers keep the backbone
+                        pieces[g][w] = backbone
+                        continue
+                    jobs.append([backbone] + layers)
+                    job_key.append((g, w))
+                    cov = max(0, len(layers) // 2)  # racon's window coverage trim
+                    if not end_trim and (w == 0 or w == nwin[g] - 1):
+                        cov = 1  # keep covered terminal columns (junction fills)
+                    job_cov.append(cov)
+            if jobs:
+                res = native.poa_consensus_batch(
+                    jobs, POA_MATCH, POA_MISMATCH, POA_GAP, min_covs=job_cov
+                )
+                if res is None:
+                    res = [poa_consensus_codes(ls, min_cov=c) for ls, c in zip(jobs, job_cov)]
+                for (g, w), cons in zip(job_key, res):
+                    L = len(dcodes[g])
+                    backbone = dcodes[g][w * window : min(L, (w + 1) * window)]
+                    pieces[g][w] = cons if cons is not None and cons.size else backbone
+            sp.add(windows=len(jobs))
         for g in act:
             if not seen_alns[g]:
                 active[g] = False

@@ -49,6 +49,7 @@ import numpy as np
 import torch.distributed as tdist
 
 from ..pipeline.orchestrate import Logger, PipelineConfig, run_pipeline
+from ..utils.tracing import kernel_launch_counts
 
 
 @dataclass(frozen=True)
@@ -154,18 +155,6 @@ def run_pipeline_distributed(
     return run_pipeline(
         assembly_path, reads_path, out_dir, cfg or PipelineConfig(), comm=Comm()
     )
-
-
-def kernel_launch_counts() -> dict[str, int]:
-    """This process's CUDA kernel launches so far, by kernel."""
-    from ..ops import align_dp_cuda, align_myers_cuda
-
-    return {
-        "myers_fused": align_myers_cuda.myers_fused_cuda.launches,
-        "myers_rows": align_myers_cuda.myers_rows.launches,
-        "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
-        "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
-    }
 
 
 def main(argv=None):

@@ -31,6 +31,7 @@ from .. import native as _native
 from ..constants import GAP, TRIMER_ABSENT, encode_seq
 from ..core.datatypes import Alignment
 from ..pipeline.pileup import WINDOW, build_window_blocks, orient_read
+from ..utils import tracing
 from ..utils.shapes import pow2_bucket
 
 from ..ops.cluster import cw_numpy
@@ -472,7 +473,8 @@ def finish_preps(
 ) -> dict[str, ContigPrep]:
     """Column stats for every pending contig: the device-eligible blocks of
     ALL contigs (row bucket >= `device_min_rows`) run in batched passes on
-    `device`, the rest through the numpy twins (identical results)."""
+    `device` (a "device_pass" span each), the rest through the numpy twins
+    (identical results) while the results are collected ("host_pass")."""
     eligible = [
         (pi, i)
         for pi, pp in enumerate(pending)
@@ -483,32 +485,34 @@ def finish_preps(
     CHUNK = 256  # blocks per pass, to cap device memory
     for lo in range(0, len(eligible), CHUNK):
         part = eligible[lo : lo + CHUNK]
-        rows = max(pending[pi].blocks[i].tri.shape[0] for pi, i in part)
-        # absent-trimer padding rows are no-ops
-        tri_p = np.full((len(part), rows, cfg.window), TRIMER_ABSENT, dtype=np.int8)
-        codes_p = np.stack([pending[pi].codes_ws[i] for pi, i in part])
-        for bi, (pi, i) in enumerate(part):
-            blk = pending[pi].blocks[i]
-            tri_p[bi, : blk.tri.shape[0]] = blk.tri
-        got = window_stats_batch(
-            torch.from_numpy(tri_p).to(device), torch.from_numpy(codes_p).to(device)
-        )
-        tc_b, tn_b, cov_b, mm_b, cc_b = (x.cpu().numpy() for x in got)
-        for bi, key in enumerate(part):
-            results[key] = (tc_b[bi], tn_b[bi], cov_b[bi], mm_b[bi], cc_b[bi])
+        with tracing.span("device_pass", blocks=len(part)):
+            rows = max(pending[pi].blocks[i].tri.shape[0] for pi, i in part)
+            # absent-trimer padding rows are no-ops
+            tri_p = np.full((len(part), rows, cfg.window), TRIMER_ABSENT, dtype=np.int8)
+            codes_p = np.stack([pending[pi].codes_ws[i] for pi, i in part])
+            for bi, (pi, i) in enumerate(part):
+                blk = pending[pi].blocks[i]
+                tri_p[bi, : blk.tri.shape[0]] = blk.tri
+            got = window_stats_batch(
+                torch.from_numpy(tri_p).to(device), torch.from_numpy(codes_p).to(device)
+            )
+            tc_b, tn_b, cov_b, mm_b, cc_b = (x.cpu().numpy() for x in got)
+            for bi, key in enumerate(part):
+                results[key] = (tc_b[bi], tn_b[bi], cov_b[bi], mm_b[bi], cc_b[bi])
     out: dict[str, ContigPrep] = {}
-    for pi, pp in enumerate(pending):
-        prep = pp.prep
-        for i, blk in enumerate(pp.blocks):
-            if (pi, i) in results:
-                tc, tn, cov, mm, cc = results[(pi, i)]
-            else:
-                tc, tn, cov = column_stats_host(blk.tri)
-                mm, cc = window_error_stats_host(blk.tri, pp.codes_ws[i])
-            prep.mismatches += int(mm)
-            prep.cells += int(cc)
-            prep.win_stats.append((blk, np.asarray(tc), np.asarray(tn), np.asarray(cov)))
-        out[prep.contig] = prep
+    with tracing.span("host_pass", blocks=sum(len(pp.blocks) for pp in pending) - len(results)):
+        for pi, pp in enumerate(pending):
+            prep = pp.prep
+            for i, blk in enumerate(pp.blocks):
+                if (pi, i) in results:
+                    tc, tn, cov, mm, cc = results[(pi, i)]
+                else:
+                    tc, tn, cov = column_stats_host(blk.tri)
+                    mm, cc = window_error_stats_host(blk.tri, pp.codes_ws[i])
+                prep.mismatches += int(mm)
+                prep.cells += int(cc)
+                prep.win_stats.append((blk, np.asarray(tc), np.asarray(tn), np.asarray(cov)))
+            out[prep.contig] = prep
     return out
 
 
@@ -519,8 +523,8 @@ def call_variants_from_prep(
     *,
     device,
 ) -> ContigVariants:
-    """Pass 2: suspect columns + robust filter, with a (possibly pooled)
-    error rate."""
+    """Pass 2: suspect columns ("scan" span) + robust filter ("robust"), with
+    a (possibly pooled) error rate."""
     win_stats = prep.win_stats
     error_rate = min(error_rate, cfg.error_cap)
     min_reads = (
@@ -533,54 +537,56 @@ def call_variants_from_prep(
     autos: list[SparseColumn] = []
     rescue_pool: list[SparseColumn] = []
     last_snp = -cfg.min_snp_spacing - 1
-    for blk, tc, tn, cov in win_stats:
-        sus, auto = suspect_mask(
-            tc.astype(np.int32),
-            tn.astype(np.int32),
-            np.int32(min_reads),
-            np.float32(cfg.auto_frac),
-            min_reads_low=np.int32(min(min_reads, cfg.min_reads_suspect_low)),
-            err_rate=np.float32(error_rate),
-        )
-        sus = np.asarray(sus)
-        auto = np.asarray(auto)
-        # contig-level homopolymer guard (see ContigPrep.hp_mask): deletion
-        # alleles inside hp runs are run-length miscalls whatever their
-        # trimer context says
-        t2 = tc[:, 1]
-        if prep.hp_mask is not None:
-            is_del = (t2 // 25) == GAP
-            hp_w = np.zeros(sus.size, dtype=bool)
-            span = prep.hp_mask[blk.start : blk.start + blk.length]
-            hp_w[: span.size] = span[: sus.size]
-            blocked = is_del & hp_w
-            sus &= ~blocked
-            auto &= ~blocked
-        # rescue candidates: enough second-allele support to correlate, but
-        # not suspect (reference re-scans the whole MSA, :699-760)
-        central_ok = (tc[:, 0] // 25) != (tc[:, 1] // 25)
-        hp_ok = ((t2 // 25) != GAP) | (
-            (((t2 // 5) % 5) != (tc[:, 0] // 25)) & ((t2 % 5) != (tc[:, 0] // 25))
-        )
-        resc = (~sus) & central_ok & hp_ok & (tn[:, 1] >= 3)
-        if prep.hp_mask is not None:
-            resc &= ~blocked
-        for p in np.nonzero(sus[: blk.length])[0]:
-            gpos = blk.start + int(p)
-            if gpos - last_snp <= cfg.min_snp_spacing:
-                continue
-            last_snp = gpos
-            col = _extract_column(blk, int(p), gpos, tc, tn)
-            suspects.append(col)
-            if auto[p]:
-                autos.append(col)
-        for p in np.nonzero(resc[: blk.length])[0]:
-            rescue_pool.append(_extract_column(blk, int(p), blk.start + int(p), tc, tn))
+    with tracing.span("scan"):
+        for blk, tc, tn, cov in win_stats:
+            sus, auto = suspect_mask(
+                tc.astype(np.int32),
+                tn.astype(np.int32),
+                np.int32(min_reads),
+                np.float32(cfg.auto_frac),
+                min_reads_low=np.int32(min(min_reads, cfg.min_reads_suspect_low)),
+                err_rate=np.float32(error_rate),
+            )
+            sus = np.asarray(sus)
+            auto = np.asarray(auto)
+            # contig-level homopolymer guard (see ContigPrep.hp_mask): deletion
+            # alleles inside hp runs are run-length miscalls whatever their
+            # trimer context says
+            t2 = tc[:, 1]
+            if prep.hp_mask is not None:
+                is_del = (t2 // 25) == GAP
+                hp_w = np.zeros(sus.size, dtype=bool)
+                span = prep.hp_mask[blk.start : blk.start + blk.length]
+                hp_w[: span.size] = span[: sus.size]
+                blocked = is_del & hp_w
+                sus &= ~blocked
+                auto &= ~blocked
+            # rescue candidates: enough second-allele support to correlate, but
+            # not suspect (reference re-scans the whole MSA, :699-760)
+            central_ok = (tc[:, 0] // 25) != (tc[:, 1] // 25)
+            hp_ok = ((t2 // 25) != GAP) | (
+                (((t2 // 5) % 5) != (tc[:, 0] // 25)) & ((t2 % 5) != (tc[:, 0] // 25))
+            )
+            resc = (~sus) & central_ok & hp_ok & (tn[:, 1] >= 3)
+            if prep.hp_mask is not None:
+                resc &= ~blocked
+            for p in np.nonzero(sus[: blk.length])[0]:
+                gpos = blk.start + int(p)
+                if gpos - last_snp <= cfg.min_snp_spacing:
+                    continue
+                last_snp = gpos
+                col = _extract_column(blk, int(p), gpos, tc, tn)
+                suspects.append(col)
+                if auto[p]:
+                    autos.append(col)
+            for p in np.nonzero(resc[: blk.length])[0]:
+                rescue_pool.append(_extract_column(blk, int(p), blk.start + int(p), tc, tn))
 
     n_rows = prep.n_reads
-    kept, partitions = robust_filter(
-        suspects, rescue_pool, n_rows, error_rate, cfg, device=device
-    )
+    with tracing.span("robust", suspects=len(suspects), rescue=len(rescue_pool)):
+        kept, partitions = robust_filter(
+            suspects, rescue_pool, n_rows, error_rate, cfg, device=device
+        )
     merged: dict[int, SparseColumn] = {c.pos: c for c in kept}
     for c in autos:  # automatic SNPs always pass (reference :531,1334-1352)
         merged[c.pos] = c

@@ -28,6 +28,7 @@ from ..io.gfa import AssemblyGraph, Link
 from ..ops.consensus import consensus_from_cells, polish_iterative
 from ..ops.poa import polish_poa_multi
 from ..ops.triage import _backbone_badness, check_backbone, select_backbone
+from ..utils import tracing
 from .pileup import alignment_cells_full, orient_read
 from .separate_reads import ContigGroups
 from .unzip import DUMMY
@@ -192,116 +193,118 @@ def create_new_contigs(
             zips[contig] = cz
             continue
 
-        intervals = merge_intervals(
-            [Interval(w.start, w.end, w.labels) for w in groups.windows]
-        )
-        cz = ContigZip(contig, intervals)
-        zips[contig] = cz
-        spans = np.array(
-            [[a.t_start, a.t_end] for a in alns], dtype=np.int64
-        )
+        with tracing.span("cells"):
+            # precompute cells (positions + central bases + insertions) per read row
+            cells = []
+            for a in alns:
+                oriented = orient_read(encode_seq(read_seqs[a.read_idx]), a.strand)
+                tpos, tri, ins_t, ins_c = alignment_cells_full(a, oriented)
+                cells.append((tpos, (np.asarray(tri, dtype=np.int16) // 25).astype(np.int8), ins_t, ins_c))
 
-        # precompute cells (positions + central bases + insertions) per read row
-        cells = []
-        for a in alns:
-            oriented = orient_read(encode_seq(read_seqs[a.read_idx]), a.strand)
-            tpos, tri, ins_t, ins_c = alignment_cells_full(a, oriented)
-            cells.append((tpos, (np.asarray(tri, dtype=np.int16) // 25).astype(np.int8), ins_t, ins_c))
+        with tracing.span("consensus"):
+            intervals = merge_intervals(
+                [Interval(w.start, w.end, w.labels) for w in groups.windows]
+            )
+            cz = ContigZip(contig, intervals)
+            zips[contig] = cz
+            spans = np.array(
+                [[a.t_start, a.t_end] for a in alns], dtype=np.int64
+            )
 
-        for iv in intervals:
-            glist = sorted(set(int(g) for g in np.unique(iv.labels[iv.labels > -1])))
-            if not glist:
-                glist = [0]
-                member_rows = {0: np.zeros(0, np.int64)}
-            else:
-                member_rows = {g: np.nonzero(iv.labels == g)[0] for g in glist}
-            depths = recompute_depths(iv, spans) if iv.labels.size else {0: assembly.depths.get(contig, 0.0)}
-            separated = len(glist) > 1
-            backbone = contig_codes[iv.start : iv.end + 1]
-            for g in glist:
-                name = f"{contig}_{iv.start}_{g}"
-                cz.names[(iv.start, g)] = name
-                rows = member_rows[g]
-                if (separated or polish_everything) and rows.size:
-                    rc = [(cells[r][0], cells[r][1]) for r in rows]
-                    ri = [(cells[r][2], cells[r][3]) for r in rows]
-                    # polishing triage ladder (reference tools.cpp:397-444):
-                    # a structurally bad backbone is rebuilt before voting;
-                    # groups with <2 reads route to code 2 / reassembly like
-                    # the reference (`nb_reads < 2` -> 2, tools.cpp:1045-1047)
-                    code = check_backbone(
-                        [alns[r] for r in rows],
-                        [len(read_seqs[alns[r].read_idx]) for r in rows],
-                        iv.start,
-                        iv.end,
-                    )
-                    if code != 0:
-                        baseline = consensus_from_cells(
-                            backbone, iv.start, rc, ri, base_caller=base_caller
-                        )
-                        seq_g = select_backbone(
-                            code,
-                            backbone,
+            for iv in intervals:
+                glist = sorted(set(int(g) for g in np.unique(iv.labels[iv.labels > -1])))
+                if not glist:
+                    glist = [0]
+                    member_rows = {0: np.zeros(0, np.int64)}
+                else:
+                    member_rows = {g: np.nonzero(iv.labels == g)[0] for g in glist}
+                depths = recompute_depths(iv, spans) if iv.labels.size else {0: assembly.depths.get(contig, 0.0)}
+                separated = len(glist) > 1
+                backbone = contig_codes[iv.start : iv.end + 1]
+                for g in glist:
+                    name = f"{contig}_{iv.start}_{g}"
+                    cz.names[(iv.start, g)] = name
+                    rows = member_rows[g]
+                    if (separated or polish_everything) and rows.size:
+                        rc = [(cells[r][0], cells[r][1]) for r in rows]
+                        ri = [(cells[r][2], cells[r][3]) for r in rows]
+                        # polishing triage ladder (reference tools.cpp:397-444):
+                        # a structurally bad backbone is rebuilt before voting;
+                        # groups with <2 reads route to code 2 / reassembly like
+                        # the reference (`nb_reads < 2` -> 2, tools.cpp:1045-1047)
+                        code = check_backbone(
+                            [alns[r] for r in rows],
+                            [len(read_seqs[alns[r].read_idx]) for r in rows],
                             iv.start,
                             iv.end,
-                            rc,
-                            ri,
-                            [alns[r] for r in rows],
-                            [read_seqs[alns[r].read_idx] for r in rows],
-                            [alns[r].strand for r in rows],
-                            baseline,
-                            base_caller=base_caller,
-                            device=device,
                         )
-                        new_graph.add_segment(name, seq_g, depths.get(g, 0.0))
-                        continue
-                    seq_g = consensus_from_cells(
-                        backbone, iv.start, rc, ri, base_caller=base_caller
-                    )
-                    if polish_rounds > 0:
-                        group_reads = [read_seqs[alns[r].read_idx] for r in rows]
-                        if polish_mode == "poa":
-                            poa_jobs.append(
-                                (name, seq_g, group_reads,
-                                 [alns[r] for r in rows],
-                                 (iv.start, iv.end + 1 - iv.start))
+                        if code != 0:
+                            baseline = consensus_from_cells(
+                                backbone, iv.start, rc, ri, base_caller=base_caller
                             )
-                        else:
-                            seq_g = polish_iterative(
-                                seq_g,
-                                group_reads,
-                                rounds=polish_rounds,
+                            seq_g = select_backbone(
+                                code,
+                                backbone,
+                                iv.start,
+                                iv.end,
+                                rc,
+                                ri,
+                                [alns[r] for r in rows],
+                                [read_seqs[alns[r].read_idx] for r in rows],
+                                [alns[r].strand for r in rows],
+                                baseline,
                                 base_caller=base_caller,
                                 device=device,
                             )
-                else:
-                    seq_g = decode_seq(backbone)
-                new_graph.add_segment(name, seq_g, depths.get(g, 0.0))
-            if separated:
-                summary.append(
-                    f"{contig}[{iv.start}:{iv.end}] -> {len(glist)} haplotypes"
-                )
+                            new_graph.add_segment(name, seq_g, depths.get(g, 0.0))
+                            continue
+                        seq_g = consensus_from_cells(
+                            backbone, iv.start, rc, ri, base_caller=base_caller
+                        )
+                        if polish_rounds > 0:
+                            group_reads = [read_seqs[alns[r].read_idx] for r in rows]
+                            if polish_mode == "poa":
+                                poa_jobs.append(
+                                    (name, seq_g, group_reads,
+                                     [alns[r] for r in rows],
+                                     (iv.start, iv.end + 1 - iv.start))
+                                )
+                            else:
+                                seq_g = polish_iterative(
+                                    seq_g,
+                                    group_reads,
+                                    rounds=polish_rounds,
+                                    base_caller=base_caller,
+                                    device=device,
+                                )
+                    else:
+                        seq_g = decode_seq(backbone)
+                    new_graph.add_segment(name, seq_g, depths.get(g, 0.0))
+                if separated:
+                    summary.append(
+                        f"{contig}[{iv.start}:{iv.end}] -> {len(glist)} haplotypes"
+                    )
 
-        # links between adjacent intervals
-        for iv1, iv2 in zip(intervals[:-1], intervals[1:]):
-            st = stitch_groups(iv1.labels, iv2.labels)
-            g1s = sorted(set(int(g) for g in np.unique(iv1.labels[iv1.labels > -1]))) or [0]
-            g2s = sorted(set(int(g) for g in np.unique(iv2.labels[iv2.labels > -1]))) or [0]
-            linked_any = False
-            for g1, targets in st.items():
-                for g2 in sorted(targets):
-                    if (iv2.start, g2) in cz.names and (iv1.start, g1) in cz.names:
-                        new_graph.add_link(
-                            Link(cz.names[(iv1.start, g1)], "+", cz.names[(iv2.start, g2)], "+")
-                        )
-                        linked_any = True
-            if not linked_any:
-                # never disconnect the contig: all-to-all fallback
-                for g1 in g1s:
-                    for g2 in g2s:
-                        new_graph.add_link(
-                            Link(cz.names[(iv1.start, g1)], "+", cz.names[(iv2.start, g2)], "+")
-                        )
+            # links between adjacent intervals
+            for iv1, iv2 in zip(intervals[:-1], intervals[1:]):
+                st = stitch_groups(iv1.labels, iv2.labels)
+                g1s = sorted(set(int(g) for g in np.unique(iv1.labels[iv1.labels > -1]))) or [0]
+                g2s = sorted(set(int(g) for g in np.unique(iv2.labels[iv2.labels > -1]))) or [0]
+                linked_any = False
+                for g1, targets in st.items():
+                    for g2 in sorted(targets):
+                        if (iv2.start, g2) in cz.names and (iv1.start, g1) in cz.names:
+                            new_graph.add_link(
+                                Link(cz.names[(iv1.start, g1)], "+", cz.names[(iv2.start, g2)], "+")
+                            )
+                            linked_any = True
+                if not linked_any:
+                    # never disconnect the contig: all-to-all fallback
+                    for g1 in g1s:
+                        for g2 in g2s:
+                            new_graph.add_link(
+                                Link(cz.names[(iv1.start, g1)], "+", cz.names[(iv2.start, g2)], "+")
+                            )
 
     if poa_jobs:
         polished = polish_poa_multi(
@@ -322,112 +325,114 @@ def create_new_contigs(
             # the reference instead swaps the whole ladder for medaka
             # (tools.cpp:594-689). A read-fit tournament keeps the NN pass
             # from ever regressing below the ladder's output.
-            for job in poa_jobs:
-                name, reads_g = job[0], job[2]
-                cur = new_graph.segments[name]
-                nn_seq = polish_iterative(
-                    cur, reads_g, rounds=1, base_caller=base_caller, device=device
-                )
-                # acceptance: read fit must not worsen AND the output must
-                # not shrink: reads that systematically undercall
-                # homopolymer runs FIT a shortened draft better, so the fit
-                # gate alone happily accepts deletions of true hp bases.
-                # The per-column caller cannot insert, so net shrinkage is
-                # exactly the failure signature.
-                if (
-                    nn_seq != cur
-                    and len(nn_seq) >= len(cur) - max(2, 0.0005 * len(cur))
-                    and _backbone_badness(nn_seq, reads_g, device=device)
-                    <= _backbone_badness(cur, reads_g, device=device)
-                ):
-                    new_graph.segments[name] = nn_seq
+            with tracing.span("nn_polish"):
+                for job in poa_jobs:
+                    name, reads_g = job[0], job[2]
+                    cur = new_graph.segments[name]
+                    nn_seq = polish_iterative(
+                        cur, reads_g, rounds=1, base_caller=base_caller, device=device
+                    )
+                    # acceptance: read fit must not worsen AND the output must
+                    # not shrink: reads that systematically undercall
+                    # homopolymer runs FIT a shortened draft better, so the fit
+                    # gate alone happily accepts deletions of true hp bases.
+                    # The per-column caller cannot insert, so net shrinkage is
+                    # exactly the failure signature.
+                    if (
+                        nn_seq != cur
+                        and len(nn_seq) >= len(cur) - max(2, 0.0005 * len(cur))
+                        and _backbone_badness(nn_seq, reads_g, device=device)
+                        <= _backbone_badness(cur, reads_g, device=device)
+                    ):
+                        new_graph.segments[name] = nn_seq
 
-    # original inter-contig links -> attach to terminal interval groups
-    for l in assembly.links:
-        ends1 = _terminal_names(zips.get(l.name1), l.orient1, True)
-        ends2 = _terminal_names(zips.get(l.name2), l.orient2, False)
-        for n1 in ends1:
-            for n2 in ends2:
-                new_graph.add_link(Link(n1, l.orient1, n2, l.orient2, l.cigar))
-    new_graph.dedupe_links()
+    with tracing.span("paths"):
+        # original inter-contig links -> attach to terminal interval groups
+        for l in assembly.links:
+            ends1 = _terminal_names(zips.get(l.name1), l.orient1, True)
+            ends2 = _terminal_names(zips.get(l.name2), l.orient2, False)
+            for n1 in ends1:
+                for n2 in ends2:
+                    new_graph.add_link(Link(n1, l.orient1, n2, l.orient2, l.cigar))
+        new_graph.dedupe_links()
 
-    # per-read paths through the new contigs: within a contig, the ordered
-    # interval groups of the read; across contigs, ordered by read coordinate.
-    # Cross-contig parts are merged only when a graph link actually connects
-    # them (the reference merges only when `find_paths` returns exactly one
-    # connecting path, `create_new_contigs.cpp:1296-1420`); unmergeable parts
-    # become separate GAF records, separated by a cancel slot in the flat
-    # untangler path so no phantom adjacency is asserted.
+        # per-read paths through the new contigs: within a contig, the ordered
+        # interval groups of the read; across contigs, ordered by read coordinate.
+        # Cross-contig parts are merged only when a graph link actually connects
+        # them (the reference merges only when `find_paths` returns exactly one
+        # connecting path, `create_new_contigs.cpp:1296-1420`); unmergeable parts
+        # become separate GAF records, separated by a cancel slot in the flat
+        # untangler path so no phantom adjacency is asserted.
 
-    read_paths: dict[int, list[tuple[str, int]]] = {}
-    read_path_parts: dict[int, list[GafPart]] = {}
-    path_elems: dict[int, list[GafPart]] = {}
-    for contig, (alns, groups) in per_contig.items():
-        if groups is None:
-            continue
-        cz = zips[contig]
-        for row, a in enumerate(alns):
-            elems: list[tuple[str, int]] = []
-            ivs = []
-            for iv in cz.intervals:
-                if row < iv.labels.size and iv.labels[row] > -1:
-                    nm = cz.names.get((iv.start, int(iv.labels[row])))
-                    if nm is not None:
-                        elems.append((nm, 1))
-                        ivs.append(iv)
-            if not elems:
+        read_paths: dict[int, list[tuple[str, int]]] = {}
+        read_path_parts: dict[int, list[GafPart]] = {}
+        path_elems: dict[int, list[GafPart]] = {}
+        for contig, (alns, groups) in per_contig.items():
+            if groups is None:
                 continue
-            if a.strand == 0:
-                elems = [(nm, 0) for nm, _ in reversed(elems)]
-                # path walked against the contig: starts inside the LAST
-                # traversed interval, at its far end
-                path_off = max(0, int(ivs[-1].end) - a.t_end)
-            else:
-                path_off = max(0, a.t_start - int(ivs[0].start))
-            path_elems.setdefault(a.read_idx, []).append(
-                GafPart(
-                    elems=elems,
-                    q_start=a.q_start,
-                    q_end=a.q_end,
-                    nm=a.nm,
-                    alen=a.q_end - a.q_start,
-                    path_off=path_off,
+            cz = zips[contig]
+            for row, a in enumerate(alns):
+                elems: list[tuple[str, int]] = []
+                ivs = []
+                for iv in cz.intervals:
+                    if row < iv.labels.size and iv.labels[row] > -1:
+                        nm = cz.names.get((iv.start, int(iv.labels[row])))
+                        if nm is not None:
+                            elems.append((nm, 1))
+                            ivs.append(iv)
+                if not elems:
+                    continue
+                if a.strand == 0:
+                    elems = [(nm, 0) for nm, _ in reversed(elems)]
+                    # path walked against the contig: starts inside the LAST
+                    # traversed interval, at its far end
+                    path_off = max(0, int(ivs[-1].end) - a.t_end)
+                else:
+                    path_off = max(0, a.t_start - int(ivs[0].start))
+                path_elems.setdefault(a.read_idx, []).append(
+                    GafPart(
+                        elems=elems,
+                        q_start=a.q_start,
+                        q_end=a.q_end,
+                        nm=a.nm,
+                        alen=a.q_end - a.q_start,
+                        path_off=path_off,
+                    )
                 )
-            )
-    # canonical link keys of the new graph for the merge test
-    def _lkey(n1: str, o1: str, n2: str, o2: str) -> tuple:
-        flip = {"+": "-", "-": "+"}
-        a = (n1, o1, n2, o2)
-        b = (n2, flip[o2], n1, flip[o1])
-        return min(a, b)
+        # canonical link keys of the new graph for the merge test
+        def _lkey(n1: str, o1: str, n2: str, o2: str) -> tuple:
+            flip = {"+": "-", "-": "+"}
+            a = (n1, o1, n2, o2)
+            b = (n2, flip[o2], n1, flip[o1])
+            return min(a, b)
 
-    linkset = {_lkey(l.name1, l.orient1, l.name2, l.orient2) for l in new_graph.links}
-    for ridx, parts in path_elems.items():
-        parts.sort(key=lambda t: t.q_start)
-        merged: list[GafPart] = [parts[0]]
-        for nxt in parts[1:]:
-            prev = merged[-1]
-            tn, ts = prev.elems[-1]
-            hn, hs = nxt.elems[0]
-            connected = _lkey(tn, "+" if ts == 1 else "-", hn, "+" if hs == 1 else "-") in linkset
-            if connected:
-                merged[-1] = GafPart(
-                    elems=prev.elems + nxt.elems,
-                    q_start=prev.q_start,
-                    q_end=max(prev.q_end, nxt.q_end),
-                    nm=prev.nm + nxt.nm,
-                    alen=prev.alen + nxt.alen,
-                    path_off=prev.path_off,
-                )
-            else:
-                merged.append(nxt)
-        read_path_parts[ridx] = merged
-        path: list[tuple[str, int]] = []
-        for i, part in enumerate(merged):
-            if i > 0:
-                path.append((DUMMY, 1))
-            path.extend(part.elems)
-        read_paths[ridx] = path
+        linkset = {_lkey(l.name1, l.orient1, l.name2, l.orient2) for l in new_graph.links}
+        for ridx, parts in path_elems.items():
+            parts.sort(key=lambda t: t.q_start)
+            merged: list[GafPart] = [parts[0]]
+            for nxt in parts[1:]:
+                prev = merged[-1]
+                tn, ts = prev.elems[-1]
+                hn, hs = nxt.elems[0]
+                connected = _lkey(tn, "+" if ts == 1 else "-", hn, "+" if hs == 1 else "-") in linkset
+                if connected:
+                    merged[-1] = GafPart(
+                        elems=prev.elems + nxt.elems,
+                        q_start=prev.q_start,
+                        q_end=max(prev.q_end, nxt.q_end),
+                        nm=prev.nm + nxt.nm,
+                        alen=prev.alen + nxt.alen,
+                        path_off=prev.path_off,
+                    )
+                else:
+                    merged.append(nxt)
+            read_path_parts[ridx] = merged
+            path: list[tuple[str, int]] = []
+            for i, part in enumerate(merged):
+                if i > 0:
+                    path.append((DUMMY, 1))
+                path.extend(part.elems)
+            read_paths[ridx] = path
 
     return ZipResult(
         graph=new_graph,

@@ -25,7 +25,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "hairsplitter_tpu")
 PORT_FILES = sorted(
     os.path.relpath(p, REPO)
     for p in glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", "**", "*.py"), recursive=True)
-) + ["chip_smoke.py", "bench_torch.py", "scripts/profile_torch_pipeline.py", "scripts/torch_stage_times.py",
+) + ["chip_smoke.py", "bench_torch.py", "scripts/profile_torch_pipeline.py",
      "scripts/kernel_variants.py", "scripts/myers_fused_variants.py", "scripts/banded_fused_variants.py",
      "scripts/torch_two_process_cold_build.py", "scripts/torch_train_polisher.py",
      "scripts/torch_eval_quality.py", "scripts/torch_demo.py", "scripts/profile_torch_training.py"]
