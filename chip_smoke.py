@@ -28,11 +28,18 @@ Phases (each prints its result; any failure raises and exits non-zero):
      At 32,768 jobs the fused mapping call with K2 (kernel="pallas") must
      equal the call with K1 byte for byte, one call of either must be
      exactly one device launch of its fused kernel (torch.profiler), and
-     the calls are timed, K1's also with its host copies;
+     the calls are timed, K1's also with its host copies. Stage 3's
+     window-stats kernel, `window_stats_cuda`, must equal
+     `window_stats_plain` and the numpy twins block by block at clonal30x's
+     blocks (26 x 64 rows x 8,192) and an amplicon sample's (2 x 2,000
+     rows), one launch a call, timed alone beside its bound and beside the
+     staged round trip that `finish_preps` makes;
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
      (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
-     counter must be > 0 and the check-mode kernel's must stay 0, the final
-     GFA must exist and every strain's recovery must be >= 0.95;
+     counter must be > 0 and the check-mode kernel's must stay 0, the
+     window-stats kernel must launch once and take every block of stage 3
+     (`call_variants.stats`: `host_blocks` 0), the final GFA must exist and
+     every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
      `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; the fused
      K2 kernel's launch counter must be > 0, K2's check-mode kernel must not
@@ -220,6 +227,36 @@ def mode_pattern(name: str, n: int) -> np.ndarray:
     return np.full(n, 0 if name == "global" else 1, np.int32)
 
 
+def window_blocks(rng: np.random.Generator, rows, P: int):
+    """Seeded stage-3 window blocks, one per entry of `rows` (its row count),
+    with the contig codes under each: int8 trimer codes [R, P] and int8
+    contig codes [P]. 60% of cells are present, drawn from four codes a
+    column so that counts tie often; every 7th column is absent in all rows,
+    the columns past the block's length (the last fifth) are absent with
+    contig code 5 (PAD), columns 1 mod 7 alternate a large and a small code
+    from the first row, so that with an even row count their counts tie and
+    the smaller code must win; a block of more than 65,535 rows puts one
+    code in every row of columns 2 to 5."""
+    TRIMER_ABSENT = 127
+    length = P - P // 5
+    tris, codes = [], []
+    for R in rows:
+        alphabet = rng.integers(0, 125, (P, 4))
+        tri = alphabet[np.arange(P)[None, :], rng.integers(0, 4, (R, P))].astype(np.int8)
+        tri[rng.random((R, P)) >= 0.6] = TRIMER_ABSENT
+        tri[:, ::7] = TRIMER_ABSENT
+        tie = np.arange(1, P, 7)
+        tri[:, tie] = np.where(np.arange(R)[:, None] % 2 == 0, 120, 3)
+        if R > 65_535:
+            tri[:, 2:6] = 62
+        tri[:, length:] = TRIMER_ABSENT
+        code = rng.integers(0, 4, P).astype(np.int8)
+        code[length:] = 5
+        tris.append(tri)
+        codes.append(code)
+    return tris, codes
+
+
 def break_assembly(hap: str) -> dict[str, str]:
     """The 300 kb assembly broken the way tests/test_tailor.py breaks its
     assemblies: `chim` joins the first 100 kb to the distant piece
@@ -390,6 +427,78 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+# stage 3's window blocks: clonal30x's (~26 blocks of 64 rows a job) and an
+# amplicon sample's (2,000 reads over a 9.7 kb genome: 2 blocks)
+WS_SHAPES = {"clonal30x": ((64,) * 26, 8192), "amplicon": ((2000,) * 2, 8192)}
+
+
+def window_stats_phase(dev) -> dict:
+    """The window-stats kernel (`ops/variants.py:window_stats_cuda`) at each
+    of `WS_SHAPES`: equal to the plain version on the card and to the numpy
+    twins, block by block; one launch a call (its counter and the profiler);
+    timed alone with CUDA events and in the profiler's trace, beside its bound
+    (bytes read once and written once over 3.35 TB/s), the plain version on
+    the dense batch, the numpy twins over the blocks and the whole staged
+    round trip that `finish_preps` makes (`window_stats_blocks`; host
+    clock). Returns the numbers by shape."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from hairsplitter_tpu_torch.ops import variants as V
+
+    report = {}
+    for label, (rows, P) in WS_SHAPES.items():
+        nb, R = len(rows), rows[0]
+        tris, codes = window_blocks(np.random.default_rng(len(rows)), rows, P)
+        staging, offsets = V.pack_window_blocks(tris, codes)
+        n = int(offsets[-1])
+        on_dev = staging.to(dev)
+        offs = torch.from_numpy(offsets).to(dev)
+        flat, code = on_dev[:n], on_dev[n:]
+        before = V.window_stats_cuda.launches
+        got = [x.cpu() for x in V.unpack_window_stats(V.window_stats_packed(flat, offs, code), nb, P)]
+        torch.cuda.synchronize()
+        assert V.window_stats_cuda.launches == before + 1
+        plain = [x.cpu() for x in V.window_stats_plain(flat.view(nb, R, P), code)]
+        for g, r in zip(got, plain):
+            assert torch.equal(g, r), f"window_stats_cuda differs from window_stats_plain at {label}"
+        t0 = time.perf_counter()
+        for b, (tri, c) in enumerate(zip(tris, codes)):
+            tc, tn, cov = V.column_stats_host(tri)
+            mm, cc = V.window_error_stats_host(tri, c)
+            assert (got[0][b].numpy() == tc).all() and (got[1][b].numpy() == tn).all()
+            assert (got[2][b].numpy() == cov).all() and (int(got[3][b]), int(got[4][b])) == (mm, cc)
+        twins_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            V.window_stats_packed(flat, offs, code)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "window_stats" in e.name]
+        assert len(kernels) == 1, f"one call must launch the kernel once: {[e.name for e in kernels]}"
+        trace_ms = kernels[0].time_range.elapsed_us() / 1e3
+        out = V.unpack_window_stats(torch.empty(V.window_stats_bytes(nb, P), dtype=torch.uint8, device=dev), nb, P)
+        before = V.window_stats_cuda.launches
+        k_ms = cuda_ms(lambda: V.window_stats_cuda(flat, offs, code, out), 50)
+        assert V.window_stats_cuda.launches == before + 51  # a warm-up call, then 50
+        p_ms = cuda_ms(lambda: V.window_stats_plain(flat.view(nb, R, P), code), 5)
+        V.window_stats_blocks(tris, codes, dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            V.window_stats_blocks(tris, codes, dev)
+        staged_ms = (time.perf_counter() - t0) / 5 * 1e3
+        n_bytes = (n + nb) * P + 8 * (nb + 1) + V.window_stats_bytes(nb, P)
+        bound = bound_ms(n_bytes, 0)
+        report[label] = dict(ms=k_ms, trace_ms=trace_ms, plain_ms=p_ms, twins_ms=twins_ms, staged_ms=staged_ms,
+                             bound=bound, bytes=n_bytes)
+        print(f"[kernel window_stats] {label}: {nb} blocks x {R} rows x {P}: == window_stats_plain and the "
+              f"numpy twins (block by block), one launch a call; kernel {k_ms:.4f} ms "
+              f"(the profiler's kernel: {trace_ms:.4f} ms), bound "
+              f"{bound[0]:.4f} ms ({n_bytes / 1e6:.2f} MB read and written once, "
+              f"{100 * bound[0] / k_ms:.1f}%), plain version {p_ms:.3f} ms, numpy twins {twins_ms:.1f} ms "
+              f"(host), staged round trip (pack, pinned copies, kernel) {staged_ms:.3f} ms (host)", flush=True)
+    return report
+
+
 def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
@@ -411,6 +520,7 @@ def main() -> int:
     from hairsplitter_tpu_torch.ops.align import BandSpec
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+    from hairsplitter_tpu_torch.ops import variants as V
     from hairsplitter_tpu_torch.ops.align_device import (
         align_traceback_rows, banded_fused_plain, myers_fused_plain, readout_device, traceback_scan)
 
@@ -420,6 +530,7 @@ def main() -> int:
         am.myers_rows.launches = 0
         ad.banded_align_batch_dp.launches = 0
         ad.banded_fused_cuda.launches = 0
+        V.window_stats_cuda.launches = 0
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -638,6 +749,10 @@ def main() -> int:
               100 * enc_bytes / k2_check_parts["check_mode_kernel"] / 1e9 / 3.35), flush=True)
     del res, cost, si, sb, clip
 
+    # stage 3's window statistics, one launch over every block
+    ws = window_stats_phase(dev)
+    bounds["window_stats"] = ws["clonal30x"]["bound"]
+
     # ---- 4. main path through the CLI
     from hairsplitter_tpu_torch.io.gfa import parse_gfa
     from hairsplitter_tpu_torch.utils.evaluate import evaluate_phasing
@@ -686,6 +801,12 @@ def main() -> int:
               f"{check_mode_launches}, K2 fused launches {ad.banded_fused_cuda.launches}, K2 check-mode "
               f"launches {ad.banded_align_batch_dp.launches}", flush=True)
         recovery_main = check_run(out, wall, "main")
+        ws_main = V.window_stats_cuda.launches
+        ws_counts = json.load(open(os.path.join(out, "stage_stats.json")))["call_variants.stats"]
+        assert ws_main == 1, f"stage 3 launched the window-stats kernel {ws_main} times, not once"
+        assert ws_counts["host_blocks"] == 0 and ws_counts["device_blocks"] > 0, ws_counts
+        print(f"[main] window-stats launches {ws_main}: {ws_counts['device_blocks']} blocks on the card, "
+              f"{ws_counts['host_blocks']} through the numpy twins", flush=True)
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
         out_k2 = os.path.join(root, "out_k2")
@@ -1165,6 +1286,9 @@ def main() -> int:
               k2_check_launches, k2_err, k2_ms["enc"], k2_plain_ms["enc"]),
         entry("banded_fused", "hairsplitter_tpu_torch/csrc/banded_fused.cu", k2_at,
               sum(k2_paths), k2f_err, k2f_ms, k2fp_ms),
+        # no TPU kernel: the JAX package's column stats are jnp; times at clonal30x's blocks
+        entry("window_stats", "hairsplitter_tpu_torch/csrc/window_stats.cu", None,
+              ws_main, 0, ws["clonal30x"]["ms"], ws["clonal30x"]["plain_ms"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

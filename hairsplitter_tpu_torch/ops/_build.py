@@ -24,7 +24,7 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu")
+SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu", "window_stats.cu")
 HEADERS = ("host_emulation.cuh", "myers_common.cuh", "banded_common.cuh")  # included by the sources: part of the digest
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -188,5 +188,19 @@ def load_kernels() -> ctypes.CDLL:
         lib.hs_banded_fused_smem_bytes.argtypes = [ctypes.c_int]  # B
         lib.hs_banded_fused_occupancy.restype = ctypes.c_int
         lib.hs_banded_fused_occupancy.argtypes = [ctypes.c_int]  # B
+        lib.hs_window_stats.restype = ctypes.c_int
+        lib.hs_window_stats.argtypes = [
+            ctypes.c_void_p,  # flat int8 [sum of rows, P]
+            ctypes.c_void_p,  # offsets int64 [nb + 1]
+            ctypes.c_void_p,  # codes int8 [nb, P]
+            ctypes.c_int,  # nb
+            ctypes.c_int,  # P
+            ctypes.c_void_p,  # top codes int32 [nb, P, 3]
+            ctypes.c_void_p,  # top counts int32 [nb, P, 3]
+            ctypes.c_void_p,  # coverage int32 [nb, P]
+            ctypes.c_void_p,  # mismatched cells int64 [nb]
+            ctypes.c_void_p,  # covered cells int64 [nb]
+            ctypes.c_void_p,  # cudaStream_t
+        ]
         _lib = lib
     return _lib

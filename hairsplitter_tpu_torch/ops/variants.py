@@ -6,6 +6,12 @@ the pairwise column correlation with its gates, and the partition keep and
 rescue scans, as torch ops on any device. The numpy twins the size gates
 select (`column_stats_host`, `window_error_stats_host`, `suspect_mask`) are
 copied because the JAX module loads JAX.
+
+The window statistics have a CUDA kernel (`csrc/window_stats.cu`) that takes
+the window blocks as one ragged batch, each block at its own row count
+(`window_stats_packed`); `window_stats_plain` is its plain PyTorch version,
+which CPU tensors take, and `window_stats_blocks` stages numpy blocks
+through it with one copy each way.
 """
 
 from __future__ import annotations
@@ -27,7 +33,18 @@ def window_stats_batch(tri: torch.Tensor, codes_w: torch.Tensor):
     codes_w: int8 [nb, P] contig codes. Returns (top codes int32 [nb, P, 3],
     top counts int32 [nb, P, 3], coverage int32 [nb, P], mismatched cells
     int64 [nb], covered cells int64 [nb]). Ties in the top-3 go to the
-    smaller code."""
+    smaller code. CUDA tensors go through the kernel as a ragged batch of
+    equal blocks (one launch); other devices take `window_stats_plain`."""
+    if tri.device.type != "cuda":
+        return window_stats_plain(tri, codes_w)
+    nb, R, P = tri.shape
+    offsets = torch.arange(nb + 1, dtype=torch.int64, device=tri.device) * R
+    return unpack_window_stats(window_stats_packed(tri.reshape(nb * R, P), offsets, codes_w), nb, P)
+
+
+def window_stats_plain(tri: torch.Tensor, codes_w: torch.Tensor):
+    """`window_stats_batch` in torch ops on any device: a bincount per chunk
+    of windows and a top-3 by `topk` over keys unique per column."""
     nb, R, P = tri.shape
     dev = tri.device
     bins = N_TRIMERS + 1  # last bin collects absent cells
@@ -53,6 +70,119 @@ def window_stats_batch(tri: torch.Tensor, codes_w: torch.Tensor):
         mms.append(mism.sum(dim=(1, 2)))
         ccs.append(present.sum(dim=(1, 2)))
     return tuple(torch.cat(x) for x in (tcs, tns, covs, mms, ccs))
+
+
+def window_stats_bytes(nb: int, P: int) -> int:
+    """Size of the byte buffer that holds the statistics of nb blocks."""
+    return 16 * nb + 28 * nb * P
+
+
+def unpack_window_stats(buf: torch.Tensor, nb: int, P: int):
+    """Views of `window_stats_batch`'s five results in a uint8 buffer of
+    `window_stats_bytes(nb, P)` bytes, laid out as mismatched cells and
+    covered cells (int64 [nb] each), top codes and top counts (int32
+    [nb, P, 3] each), then coverage (int32 [nb, P])."""
+    sums = buf[: 16 * nb].view(torch.int64)
+    o, n3 = 16 * nb, 12 * nb * P
+    tc = buf[o : o + n3].view(torch.int32).view(nb, P, 3)
+    tn = buf[o + n3 : o + 2 * n3].view(torch.int32).view(nb, P, 3)
+    cov = buf[o + 2 * n3 :].view(torch.int32).view(nb, P)
+    return tc, tn, cov, sums[:nb], sums[nb:]
+
+
+def window_stats_packed(flat: torch.Tensor, offsets: torch.Tensor, codes_w: torch.Tensor) -> torch.Tensor:
+    """Statistics of a ragged batch of window blocks, in one byte buffer that
+    `unpack_window_stats` reads: block b is flat[offsets[b]:offsets[b + 1]].
+
+    flat: int8 [sum of rows, P] every block's rows one after another;
+    offsets: int64 [nb + 1], rising from 0 to the row count; codes_w: int8
+    [nb, P]. CUDA tensors launch `csrc/window_stats.cu` once
+    (`window_stats_cuda`); CPU tensors take `window_stats_plain` block by
+    block. The results are those of `window_stats_batch` on each block."""
+    nb, P = codes_w.shape
+    if flat.dim() != 2 or flat.shape[1] != P or offsets.shape != (nb + 1,):
+        raise ValueError(
+            f"flat [rows, {P}] and offsets [{nb + 1}] expected, got {tuple(flat.shape)} and {tuple(offsets.shape)}"
+        )
+    if flat.dtype != torch.int8 or codes_w.dtype != torch.int8 or offsets.dtype != torch.int64:
+        raise TypeError("flat and codes_w must be int8 and offsets int64")
+    buf = torch.empty(window_stats_bytes(nb, P), dtype=torch.uint8, device=flat.device)
+    out = unpack_window_stats(buf, nb, P)
+    if flat.device.type == "cuda":
+        window_stats_cuda(flat, offsets, codes_w, out)
+    elif flat.device.type == "cpu":
+        bounds = offsets.tolist()
+        for b in range(nb):
+            got = window_stats_plain(flat[bounds[b] : bounds[b + 1]][None], codes_w[b : b + 1])
+            for o, g in zip(out, got):
+                o[b] = g[0]
+    else:
+        raise ValueError(f"unsupported device {flat.device}")
+    return buf
+
+
+def window_stats_cuda(flat, offsets, codes_w, out) -> None:
+    """One launch of `csrc/window_stats.cu` on CUDA tensors, writing the five
+    results into `out` (`unpack_window_stats`' views). Counted in
+    `window_stats_cuda.launches`."""
+    from ._build import load_kernels
+
+    nb, P = codes_w.shape
+    if not (flat.device == offsets.device == codes_w.device and flat.device.type == "cuda"):
+        raise ValueError("window_stats_cuda takes CUDA tensors on one device")
+    if flat.shape[0] >= 1 << 27:
+        raise ValueError(f"{flat.shape[0]} rows: a warp's sums of a column block are 32-bit")
+    flat, offsets, codes_w = (x.contiguous() for x in (flat, offsets, codes_w))
+    lib = load_kernels()
+    if nb == 0:  # nothing to launch, and nothing counted
+        return
+    with torch.cuda.device(flat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.hs_window_stats(
+            flat.data_ptr(), offsets.data_ptr(), codes_w.data_ptr(), nb, P,
+            *(x.data_ptr() for x in out), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"hs_window_stats launch failed with CUDA error {rc}")
+    window_stats_cuda.launches += 1
+
+
+window_stats_cuda.launches = 0
+
+
+def pack_window_blocks(tris: list[np.ndarray], codes_ws: list[np.ndarray], pin: bool = False):
+    """The ragged batch of window blocks in one host buffer: int8
+    [sum of rows + nb, P] with every block's rows one after another, then
+    one row of contig codes per block, pinned if asked; and the int64
+    [nb + 1] row offsets of the blocks (numpy)."""
+    nb, P = len(tris), codes_ws[0].shape[0]
+    offsets = np.zeros(nb + 1, dtype=np.int64)
+    np.cumsum([t.shape[0] for t in tris], out=offsets[1:])
+    rows = int(offsets[-1])
+    staging = torch.empty((rows + nb, P), dtype=torch.int8, pin_memory=pin)
+    host = staging.numpy()
+    np.concatenate(tris, axis=0, out=host[:rows])
+    np.stack(codes_ws, out=host[rows:])
+    return staging, offsets
+
+
+def window_stats_blocks(tris: list[np.ndarray], codes_ws: list[np.ndarray], device):
+    """`window_stats_packed` over numpy window blocks on `device`: tris int8
+    [R_b, P] (any R_b), codes_ws int8 [P]. The packed batch (pinned for
+    CUDA) goes to the device in one copy and the results come back in one.
+    Returns numpy (top codes [nb, P, 3], top counts [nb, P, 3], coverage
+    [nb, P], mismatched cells [nb], covered cells [nb])."""
+    device = torch.device(device)
+    pin = device.type == "cuda"
+    staging, offsets = pack_window_blocks(tris, codes_ws, pin)
+    nb, rows, P = len(tris), int(offsets[-1]), staging.shape[1]
+    on_dev = staging.to(device, non_blocking=pin)
+    buf = window_stats_packed(on_dev[:rows], torch.from_numpy(offsets).to(device), on_dev[rows:])
+    back = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=pin)
+    back.copy_(buf, non_blocking=pin)
+    if pin:
+        torch.cuda.current_stream(device).synchronize()
+    return tuple(x.numpy() for x in unpack_window_stats(back, nb, P))
 
 
 def column_stats_host(tri: np.ndarray):

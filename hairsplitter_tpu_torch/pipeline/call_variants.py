@@ -2,10 +2,12 @@
 
 Port of `hairsplitter_tpu/pipeline/call_variants.py`. It follows the JAX
 package's accelerator branches on every device, with the same size gates:
-the device chi² path for >= 512 suspect columns (rescue: >= 512 candidates),
-device column stats for pileup windows whose row bucket reaches
-`device_min_rows`; below a gate the host numpy twins run, as they do in the
-accelerator build of the JAX package.
+the device chi² path for >= 512 suspect columns (rescue: >= 512 candidates).
+The window column stats run on a CUDA device for every block, in one launch
+of `csrc/window_stats.cu` per `finish_preps`; off CUDA they keep the JAX
+package's gate: device column stats for pileup windows whose row bucket
+reaches `device_min_rows`, and below it the host numpy twins, as in the
+accelerator build of the JAX package. Every route gives the same integers.
 
 Per contig: build dense pileup windows, run the device column-stat kernels,
 apply the suspect rules, then keep only *robust* variants — columns whose
@@ -43,6 +45,7 @@ from ..ops.variants import (
     suspect_mask,
     window_error_stats_host,
     window_stats_batch,
+    window_stats_blocks,
 )
 
 
@@ -133,9 +136,10 @@ class VariantCallConfig:
     max_partition_span: int = 50_000
     p_value: float = 1e-3
     error_cap: float = 0.15  # hairsplitter.py:691-692
-    # pileup windows with fewer (bucketed) reads than this use the numpy
-    # column-stats twins: device dispatch + per-bucket compiles only pay off
-    # on big windows
+    # off CUDA, pileup windows with fewer (bucketed) reads than this use the
+    # numpy column-stats twins: device dispatch + per-bucket compiles only pay
+    # off on big windows. On CUDA every window goes to the one kernel launch
+    # of `finish_preps`, which compiles nothing per bucket
     device_min_rows: int = 256
 
 
@@ -471,36 +475,49 @@ def finish_preps(
     *,
     device,
 ) -> dict[str, ContigPrep]:
-    """Column stats for every pending contig: the device-eligible blocks of
-    ALL contigs (row bucket >= `device_min_rows`) run in batched passes on
-    `device` (a "device_pass" span each), the rest through the numpy twins
-    (identical results) while the results are collected ("host_pass")."""
-    eligible = [
-        (pi, i)
-        for pi, pp in enumerate(pending)
-        for i, rb in enumerate(pp.buckets)
-        if rb >= cfg.device_min_rows
-    ]
+    """Column stats for every pending contig. On a CUDA device every block of
+    ALL contigs goes to the card in one kernel launch (one "device_pass"
+    span). Elsewhere the blocks whose row bucket reaches `device_min_rows`
+    run in batched passes on `device` (a "device_pass" span per 256
+    blocks), the rest through the numpy twins (identical results) while the
+    results are collected ("host_pass"). The span that encloses the call
+    gets the counts `device_blocks` and `host_blocks`."""
+    keys = [(pi, i) for pi, pp in enumerate(pending) for i in range(len(pp.blocks))]
     results: dict[tuple[int, int], tuple] = {}
-    CHUNK = 256  # blocks per pass, to cap device memory
-    for lo in range(0, len(eligible), CHUNK):
-        part = eligible[lo : lo + CHUNK]
-        with tracing.span("device_pass", blocks=len(part)):
-            rows = max(pending[pi].blocks[i].tri.shape[0] for pi, i in part)
-            # absent-trimer padding rows are no-ops
-            tri_p = np.full((len(part), rows, cfg.window), TRIMER_ABSENT, dtype=np.int8)
-            codes_p = np.stack([pending[pi].codes_ws[i] for pi, i in part])
-            for bi, (pi, i) in enumerate(part):
-                blk = pending[pi].blocks[i]
-                tri_p[bi, : blk.tri.shape[0]] = blk.tri
-            got = window_stats_batch(
-                torch.from_numpy(tri_p).to(device), torch.from_numpy(codes_p).to(device)
-            )
-            tc_b, tn_b, cov_b, mm_b, cc_b = (x.cpu().numpy() for x in got)
-            for bi, key in enumerate(part):
-                results[key] = (tc_b[bi], tn_b[bi], cov_b[bi], mm_b[bi], cc_b[bi])
+    if torch.device(device).type == "cuda":
+        if keys:
+            with tracing.span("device_pass", blocks=len(keys)):
+                got = window_stats_blocks(
+                    [pending[pi].blocks[i].tri for pi, i in keys],
+                    [pending[pi].codes_ws[i] for pi, i in keys],
+                    device,
+                )
+                for bi, key in enumerate(keys):
+                    results[key] = tuple(x[bi] for x in got)
+    else:
+        eligible = [(pi, i) for pi, i in keys if pending[pi].buckets[i] >= cfg.device_min_rows]
+        CHUNK = 256  # blocks per pass, to cap device memory
+        for lo in range(0, len(eligible), CHUNK):
+            part = eligible[lo : lo + CHUNK]
+            with tracing.span("device_pass", blocks=len(part)):
+                rows = max(pending[pi].blocks[i].tri.shape[0] for pi, i in part)
+                # absent-trimer padding rows are no-ops
+                tri_p = np.full((len(part), rows, cfg.window), TRIMER_ABSENT, dtype=np.int8)
+                codes_p = np.stack([pending[pi].codes_ws[i] for pi, i in part])
+                for bi, (pi, i) in enumerate(part):
+                    blk = pending[pi].blocks[i]
+                    tri_p[bi, : blk.tri.shape[0]] = blk.tri
+                got = window_stats_batch(
+                    torch.from_numpy(tri_p).to(device), torch.from_numpy(codes_p).to(device)
+                )
+                tc_b, tn_b, cov_b, mm_b, cc_b = (x.cpu().numpy() for x in got)
+                for bi, key in enumerate(part):
+                    results[key] = (tc_b[bi], tn_b[bi], cov_b[bi], mm_b[bi], cc_b[bi])
+    enclosing = tracing.current()
+    if enclosing is not None:
+        enclosing.add(device_blocks=len(results), host_blocks=len(keys) - len(results))
     out: dict[str, ContigPrep] = {}
-    with tracing.span("host_pass", blocks=sum(len(pp.blocks) for pp in pending) - len(results)):
+    with tracing.span("host_pass", blocks=len(keys) - len(results)):
         for pi, pp in enumerate(pending):
             prep = pp.prep
             for i, blk in enumerate(pp.blocks):

@@ -145,11 +145,12 @@ def dropped() -> int:
 
 def kernel_launch_counts() -> dict[str, int]:
     """This process's CUDA kernel launches so far, by kernel."""
-    from ..ops import align_dp_cuda, align_myers_cuda
+    from ..ops import align_dp_cuda, align_myers_cuda, variants
 
     return {
         "myers_fused": align_myers_cuda.myers_fused_cuda.launches,
         "myers_rows": align_myers_cuda.myers_rows.launches,
         "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
         "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
+        "window_stats": variants.window_stats_cuda.launches,
     }

@@ -8,7 +8,10 @@ polisher CNN (logits atol/rtol 1e-4, bases above a top-two margin of 1e-3),
 training: its realistic corpus (equal byte for byte), one Adam step (within
 1e-5) and two trainings with one seed (equal bit for bit); and the headline
 block of `bench_torch.py` (a positive rate, the buffer of the call it times
-equal to the plain composition's). Every test is marked `cuda` and skips
+equal to the plain composition's). Stage 3's window-stats kernel against
+its plain version and the numpy twins on ragged batches, and
+`finish_preps` on the card against the CPU (every field, and the COL file
+of the stage byte for byte). Every test is marked `cuda` and skips
 without a GPU (the kernels have no CPU mode).
 
 This file imports nothing of JAX, so it also runs on a machine without JAX:
@@ -20,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import MODE_PATTERNS, edge_jobs, mode_pattern, random_jobs
+from chip_smoke import MODE_PATTERNS, edge_jobs, mode_pattern, random_jobs, window_blocks
 from hairsplitter_tpu_torch.utils.sim import make_haplotypes, simulate_reads
 from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
 from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
@@ -327,3 +330,111 @@ def test_bench_headline_block_on_the_card(cuda, monkeypatch):
     assert res["fused_jobs"] == 2048 and res["fused_kernel"] == "myers"
     batch = bench_torch.bench_batch(SPEC, 2048, cuda)
     assert torch.equal(align_traceback_rows(*batch, SPEC, "myers"), myers_fused_plain(*batch, SPEC))
+
+
+WINDOW_BATCHES = {
+    "ragged": ((1, 31, 64, 257, 2000, 64, 1), 8192),
+    "deep": ((70_000, 3, 1), 8),  # counts above 65,535
+}
+
+
+@pytest.mark.parametrize("batch", sorted(WINDOW_BATCHES))
+def test_window_stats_kernel_equals_plain_and_numpy_twins(cuda, batch):
+    from hairsplitter_tpu_torch.ops import variants as V
+
+    rows, P = WINDOW_BATCHES[batch]
+    tris, codes = window_blocks(np.random.default_rng(len(rows)), rows, P)
+    staging, offsets = V.pack_window_blocks(tris, codes)
+    n, nb = int(offsets[-1]), len(rows)
+    on_dev = staging.to(cuda)
+    flat, code = on_dev[:n], on_dev[n:]
+    before = V.window_stats_cuda.launches
+    got = [x.cpu() for x in V.unpack_window_stats(
+        V.window_stats_packed(flat, torch.from_numpy(offsets).to(cuda), code), nb, P)]
+    assert V.window_stats_cuda.launches == before + 1
+    for b, (tri, c) in enumerate(zip(tris, codes)):
+        plain = [x.cpu() for x in V.window_stats_plain(flat[offsets[b] : offsets[b + 1]][None], code[b : b + 1])]
+        for g, r in zip(got, plain):
+            assert torch.equal(g[b], r[0]), f"block {b} ({rows[b]} rows)"
+        tc, tn, cov = V.column_stats_host(tri)
+        mm, cc = V.window_error_stats_host(tri, c)
+        for g, r in zip(got[:3], (tc, tn, cov)):
+            np.testing.assert_array_equal(g[b].numpy(), r)
+        assert (int(got[3][b]), int(got[4][b])) == (mm, cc)
+    assert [x.tolist() for x in got] == [x.tolist() for x in V.window_stats_blocks(tris, codes, cuda)]
+    # the dense entry routes through the kernel too: blocks of one row count
+    same = [b for b in range(nb) if rows[b] == rows[2]]
+    tri_d = torch.from_numpy(np.stack([tris[b] for b in same])).to(cuda)
+    code_d = torch.from_numpy(np.stack([codes[b] for b in same])).to(cuda)
+    before = V.window_stats_cuda.launches
+    dense = V.window_stats_batch(tri_d, code_d)
+    assert V.window_stats_cuda.launches == before + 1
+    for g, r in zip(dense, V.window_stats_plain(tri_d, code_d)):
+        assert torch.equal(g, r)
+
+
+def _two_contig_job(device):
+    """Two 40 kb contigs of two strains each at 1%, 30x of 8 kb reads a
+    contig at 10% error, mapped on the card: the per-contig pending preps
+    of stage 3, and what writing the COL file needs."""
+    from hairsplitter_tpu_torch.pipeline import call_variants as cv
+
+    rng = np.random.default_rng(30)
+    haps = {name: make_haplotypes(40_000, 2, 0.01, rng) for name in ("a", "b")}
+    reads = simulate_reads(haps["a"] + haps["b"], coverage=15, read_len=8000, rng=rng,
+                           sub_rate=0.06, ins_rate=0.02, del_rate=0.02).seqs
+    alns = map_reads({name: h[0] for name, h in haps.items()}, reads, MapConfig(), device=device)
+    per_contig = {name: sorted((a for a in alns if a.contig == name), key=lambda a: (a.read_idx, a.t_start))
+                  for name in haps}
+    seqs = dict(enumerate(reads))
+    cfg = cv.VariantCallConfig()
+    pending = lambda: [cv.prepare_contig_host(name, haps[name][0], per_contig[name], seqs, cfg)  # noqa: E731
+                       for name in haps]
+    return pending, per_contig, cfg
+
+
+def test_finish_preps_on_card_equals_cpu(cuda, tmp_path):
+    """Every block of both contigs in one device pass and one launch on the
+    card, none through the numpy twins; every field of every ContigPrep and
+    the stage's COL file equal to the CPU route's."""
+    from hairsplitter_tpu_torch.io.col_gro import write_col
+    from hairsplitter_tpu_torch.ops import variants as V
+    from hairsplitter_tpu_torch.pipeline import call_variants as cv
+    from hairsplitter_tpu_torch.utils import tracing
+
+    pending, per_contig, cfg = _two_contig_job(cuda)
+
+    def run(device):
+        first = next(tracing._ids)
+        with tracing.span("stats") as sp:
+            preps = cv.finish_preps(pending(), cfg, device=device)
+        under = [(s.name, s.counts["blocks"]) for s in tracing.spans() if s.id > first and s.parent == sp.id]
+        return preps, sp.counts, under
+
+    ref, ref_counts, _ = run("cpu")
+    before = V.window_stats_cuda.launches
+    got, counts, under = run(cuda)
+    n_blocks = sum(len(p.win_stats) for p in ref.values())
+    assert V.window_stats_cuda.launches == before + 1
+    assert counts == {"device_blocks": n_blocks, "host_blocks": 0}
+    assert ref_counts["host_blocks"] == n_blocks  # 30x blocks sit under the gate off CUDA
+    assert under == [("device_pass", n_blocks), ("host_pass", 0)]
+    assert 4 <= n_blocks and max(blk.tri.shape[0] for p in got.values() for blk, *_ in p.win_stats) < 256
+    for name in ref:
+        g, r = got[name], ref[name]
+        assert (g.length, g.n_reads, g.mismatches, g.cells) == (r.length, r.n_reads, r.mismatches, r.cells)
+        np.testing.assert_array_equal(g.hp_mask, r.hp_mask)
+        for (gb, *gs), (rb, *rs) in zip(g.win_stats, r.win_stats, strict=True):
+            assert gb.start == rb.start
+            for x, y in zip(gs, rs):
+                assert x.dtype == y.dtype and np.array_equal(x, y)
+    err = {d: min(sum(p.mismatches for p in preps.values()) / sum(p.cells for p in preps.values()), cfg.error_cap)
+           for d, preps in (("cpu", ref), ("cuda", got))}
+    assert err["cpu"] == err["cuda"]
+    names = {i: f"read{i}" for a in per_contig.values() for i in (x.read_idx for x in a)}
+    for d, preps in (("cpu", ref), ("cuda", got)):
+        variants = {name: cv.call_variants_from_prep(p, err[d], cfg, device=d if d == "cpu" else cuda)
+                    for name, p in preps.items()}
+        write_col(str(tmp_path / f"{d}.col"), variants, per_contig, names)
+    assert (tmp_path / "cuda.col").read_bytes() == (tmp_path / "cpu.col").read_bytes()
+    assert (tmp_path / "cpu.col").stat().st_size > 0

@@ -130,7 +130,7 @@ def test_the_ring_is_bounded_and_counts_what_it_drops(monkeypatch):
 
 
 def test_kernel_launch_counts_reads_the_four_kernels():
-    from hairsplitter_tpu_torch.ops import align_dp_cuda, align_myers_cuda
+    from hairsplitter_tpu_torch.ops import align_dp_cuda, align_myers_cuda, variants
     from hairsplitter_tpu_torch.parallel import distributed
 
     counts = tracing.kernel_launch_counts()
@@ -140,6 +140,7 @@ def test_kernel_launch_counts_reads_the_four_kernels():
         "myers_rows": align_myers_cuda.myers_rows.launches,
         "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
         "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
+        "window_stats": variants.window_stats_cuda.launches,
     }
 
 
@@ -204,6 +205,18 @@ def test_stage_stats_entries(pipeline_run):
         assert stats[name]["calls"] >= 1, name
     assert stats["mapping.chain"]["reads"] > 0 and stats["mapping.align"]["jobs"] > 0
     assert stats["create_new_contigs.poa"]["windows"] > 0
+
+
+def test_stats_entry_counts_the_window_blocks_by_route(pipeline_run):
+    """`call_variants.stats` counts the blocks of each route: on the CPU the
+    fixture's blocks (~40 rows, bucket 64) all go through the numpy twins."""
+    from hairsplitter_tpu_torch.pipeline.pileup import WINDOW
+
+    stats, _, _ = pipeline_run
+    entry = stats["call_variants.stats"]
+    assert {"device_blocks", "host_blocks"} <= set(entry)
+    assert entry["device_blocks"] + entry["host_blocks"] == -(-20_000 // WINDOW)  # the fixture's one 20 kb contig
+    assert entry["device_blocks"] == 0
 
 
 def test_map_reads_spans_nest_under_their_caller(pipeline_run):
