@@ -4,6 +4,7 @@
 Run from the root of a checkout on a machine with an NVIDIA Hopper GPU:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only devices    # phases 1, 2 and 10's cards part alone
 
 Phases (each prints its result; any failure raises and exits non-zero):
   1. environment: a CUDA device is required; prints the card's name and
@@ -77,7 +78,20 @@ Phases (each prints its result; any failure raises and exits non-zero):
      under an equal header), process 1 must write nothing but its log and
      stage statistics, every strain's recovery must be >= 0.95, and each
      process must report at least one fused K1 launch and no check-mode
-     launch in its log;
+     launch in its log. On a host with N >= 2 cards (up to 4), then one job
+     of the benchmark cell `strains-ont-dist4.meta10x30`'s pool on cuda:0
+     in this process, and through `run_pipeline` with
+     `PipelineConfig(devices=N)` twice (the worker group started, then
+     reused) and the CLI's `--devices N` once (the same group): every
+     artifact byte-identical to the one-card run's (the SAM as sorted lines;
+     the CLI's fingerprint file aside, whose -q reads "0" for "0.0"), the
+     log of process i naming `device: cuda:i` and ending with that job's
+     launches: at least one fused K1 launch and none of a check mode,
+     process 0's count equal to this process's counters reset just before
+     the run; process 0's `stage_stats.json` holding the collectives and
+     `shard.p<i>`; the output judged correct under the cell's limits by
+     `benchmark/reference/judge.py`. `--only devices` runs phases 1, 2 and
+     this part alone;
  11. mesh: on `make_mesh(["cuda:0"])`, `phase_shard_step` at C = 2, Rr = 512,
      Pp = 2048, S = 256, K = 8, `column_stats_shard_step` on its pileup and
      `map_shard_step` at 8,192 jobs of the default BandSpec with K1's and
@@ -347,6 +361,101 @@ def run_processes(repo: str, asm_path: str, reads_path: str, out: str, nproc: in
     return wall
 
 
+def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
+    """One pool job of the four-card cell on `device` here, then over `n`
+    cards (run_pipeline twice, the CLI once): equal outputs, each process on
+    its own card with its own launches, judged correct. `counters` are the
+    kernel wrappers whose `.launches` this process counts, by log name.
+    With device "cpu" the same runs go over CPU processes, with no launch
+    to count (a rehearsal off the card)."""
+    import torch
+
+    from benchmark import manifest
+    from benchmark.reference import judge as J
+    from benchmark.traffic import generate
+    from hairsplitter_tpu_torch import cli
+    from hairsplitter_tpu_torch.parallel import distributed
+    from hairsplitter_tpu_torch.pipeline.orchestrate import PipelineConfig, run_pipeline
+
+    cell = manifest.load_cell("strains-ont-dist4.meta10x30")
+    job = generate.make_job(cell.params, [int(cell.params.get("content_seed", 0)), 0, 0])
+    pipeline = {k: v for k, v in cell.config["pipeline"].items() if k != "devices"}
+    logs = ("hairsplitter.log", "stage_stats.json")
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def outputs(out):
+        return sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs
+                      if os.path.relpath(os.path.join(d, f), out) not in logs)
+
+    with tempfile.TemporaryDirectory(prefix="hs_devices_") as root:
+        generate.write_job(job, os.path.join(root, "job"))
+        asm, reads = job.paths["assembly"], job.paths["reads"]
+        walls, outs = {}, {}
+        one = os.path.join(root, "one")
+        reset()
+        t0 = time.perf_counter()
+        run_pipeline(asm, reads, one, PipelineConfig(**pipeline, device=device))
+        walls["one card"] = time.perf_counter() - t0
+        for label in ("cards, group started", "cards, group reused", "cli --devices"):
+            outs[label] = os.path.join(root, re.sub(r"\W+", "_", label))
+            reset()
+            t0 = time.perf_counter()
+            if label.startswith("cli"):
+                pids = [p.pid for p in distributed._GROUP.procs]
+                assert cli.main(["-i", asm, "-f", reads, "-o", outs[label], "--devices", str(n),
+                                 "--device", device]) == 0
+                assert [p.pid for p in distributed._GROUP.procs] == pids, "the CLI call started another group"
+            else:
+                run_pipeline(asm, reads, outs[label], PipelineConfig(**pipeline, device=device, devices=n))
+            walls[label] = time.perf_counter() - t0
+            here = {name: fn.launches for name, fn in counters.items()}
+            names = outputs(one)
+            assert outputs(outs[label]) == sorted(names + [f"{k}.p{i}.{e}" for i in range(1, n) for k, e in
+                                                           (("hairsplitter", "log"), ("stage_stats", "json"))])
+            for rel in names:
+                a, b = os.path.join(one, rel), os.path.join(outs[label], rel)
+                if rel.endswith(".sam"):
+                    assert sam_parts(a) == sam_parts(b), f"{label}: {rel} differs beyond the order of its lines"
+                elif not (label.startswith("cli") and rel == "tmp/run_fingerprint.txt"):
+                    assert open(a, "rb").read() == open(b, "rb").read(), f"{label}: {rel} differs from one card's"
+            launches = []
+            for i in range(n):
+                with open(os.path.join(outs[label], f"hairsplitter.p{i}.log" if i else "hairsplitter.log")) as f:
+                    text = f.read()
+                card = distributed.card_of(device, i, torch.cuda.device_count())
+                assert f"device: {card}\n" in text, f"{label}: process {i} did not run on {card}"
+                counts = dict((k, int(v)) for k, v in re.findall(r"(\w+)=(\d+)", text.splitlines()[-1]))
+                assert counts["myers_fused"] > 0 or device == "cpu", f"{label}: process {i} launched no fused K1"
+                assert counts["myers_rows"] == 0 and counts["banded_dp"] == 0, f"{label}: process {i} check mode"
+                if i == 0:
+                    assert all(counts[k] == v for k, v in here.items()), f"{label}: log {counts}, counters {here}"
+                launches.append(counts["myers_fused"])
+            print(f"[devices] {label}: {walls[label]:.3f} s against {walls['one card']:.3f} s on one card; "
+                  f"{len(names)} artifacts equal; fused K1 launches by process {launches}", flush=True)
+        with open(os.path.join(outs["cards, group reused"], "stage_stats.json")) as f:
+            stats = json.load(f)
+        comm = {k: v["seconds"] for k, v in stats.items() if k == "comm" or k.endswith(".comm")}
+        assert {"mapping.comm", "call_variants.comm", "separate_reads.comm"} <= set(comm), comm
+        shards = [stats[f"shard.p{i}"]["seconds"] for i in range(n)]
+        files = {}
+        for key, rel in J.ARTIFACTS.items():
+            with open(os.path.join(outs["cards, group reused"], rel)) as f:
+                files[key] = f.read()
+        truth = J.truth_of(job, np.random.default_rng(1))
+        J.reference_costs([truth], device)
+        numbers = J.judge(truth, files)
+        ok, rows = J.verdict(numbers, cell.limits)
+        assert ok, rows
+    distributed._close_group()
+    summary = {"devices": n, "read_bp": job.reads.bases, "seconds": walls, "comm": comm, "shards": shards,
+               "numbers": numbers}
+    print(f"[devices] {json.dumps(summary)}", flush=True)
+    return summary
+
+
 def build_dataset(root: str):
     """The smoke dataset (`scripts/bench_pipeline.py:build_dataset` defaults):
     300 kb x 3 strains at 1% divergence, 30x of 8 kb reads, 10% error
@@ -499,7 +608,13 @@ def window_stats_phase(dev) -> dict:
     return report
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", choices=["devices"], default=None,
+                    help="devices: the environment, the build and phase 10's job over the host's cards alone")
+    args = ap.parse_args(argv)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch
 
@@ -547,6 +662,16 @@ def main() -> int:
     assert os.path.dirname(native_so) == _build.BUILD_DIR, native_so
     print(f"[build] native host library (g++, built now: {'native_seconds' in _build.build_info}): "
           f"{time.perf_counter() - t0:.2f} s -> {native_so}", flush=True)
+    counters = {"myers_fused": am.myers_fused_cuda, "myers_rows": am.myers_rows,
+                "banded_dp": ad.banded_align_batch_dp, "banded_fused": ad.banded_fused_cuda,
+                "window_stats": V.window_stats_cuda}
+    if args.only == "devices":
+        assert torch.cuda.device_count() >= 2, f"one job over several cards needs 2 or more; torch sees " \
+            f"{torch.cuda.device_count()}"
+        devices_phase(min(4, torch.cuda.device_count()), counters)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # ---- 3. kernels vs plain versions
     dev = torch.device("cuda")
@@ -760,7 +885,7 @@ def main() -> int:
     from hairsplitter_tpu_torch.core.mapping import MapConfig
     from hairsplitter_tpu_torch.pipeline import orchestrate
 
-    def check_run(out, wall, label, stats_name="stage_stats.json"):
+    def check_run(out, wall, label):
         """Final GFA present, strain recovery >= MIN_RECOVERY; prints the
         stage table. Returns the recovery list."""
         final = os.path.join(out, "hairsplitter_final_assembly.gfa")
@@ -769,7 +894,7 @@ def main() -> int:
         assert g.segments and all(len(s) > 0 for s in g.segments.values())
         ev = evaluate_phasing(g.segments, haps)
         recovery = [float(r) for r in ev.haplotype_recovery]
-        stats = json.load(open(os.path.join(out, stats_name)))
+        stats = json.load(open(os.path.join(out, "stage_stats.json")))
         print(f"[{label}] {wall:.1f} s wall, {len(g.segments)} contigs, "
               f"recovery {recovery}, switch errors {ev.total_switch_errors}", flush=True)
         for stage, entry in stats.items():
@@ -960,7 +1085,7 @@ def main() -> int:
         dist_launches = []
         error_rates = []
         for rank in range(2):
-            with open(os.path.join(out_two, f"hairsplitter.p{rank}.log")) as f:
+            with open(os.path.join(out_two, f"hairsplitter.p{rank}.log" if rank else "hairsplitter.log")) as f:
                 log_text = f.read()
             counts = dict((k, int(v)) for k, v in re.findall(r"(\w+)=(\d+)", re.findall(r"kernel launches: (.*)", log_text)[-1]))
             error_rates.append(re.findall(r"global error rate (\S+)", log_text)[0])
@@ -968,18 +1093,20 @@ def main() -> int:
             assert counts["myers_fused"] > 0, f"process {rank} never launched the fused Myers kernel"
             assert counts["myers_rows"] == 0 and counts["banded_dp"] == 0, f"process {rank} launched a check-mode kernel"
             dist_launches.append(counts["myers_fused"])
-            stats = json.load(open(os.path.join(out_two, f"stage_stats.p{rank}.json")))
+            stats = json.load(open(os.path.join(out_two, f"stage_stats.p{rank}.json" if rank else "stage_stats.json")))
             top = {k: v for k, v in stats.items() if "." not in k}
             print(f"[distributed] process {rank} on cuda:0: K1 fused launches {counts['myers_fused']}, check-mode "
                   f"launches K1 {counts['myers_rows']} K2 {counts['banded_dp']}; stage seconds "
                   + ", ".join(f"{k} {v['seconds']:.3f}" for k, v in top.items())
                   + f" (sum {sum(v['seconds'] for v in top.values()):.3f})", flush=True)
         assert error_rates[0] == error_rates[1], f"the processes logged different global error rates: {error_rates}"
-        check_run(out_two, wall_two, "distributed two processes", stats_name="stage_stats.p0.json")
+        check_run(out_two, wall_two, "distributed two processes")
         print(f"[distributed] two processes on one card ({card}): {wall_two:.1f} s from the first start to the last "
               f"exit (interpreter, torch and CUDA start-up of both included) against {wall_cold:.1f} s for one "
               f"new process and {wall_one:.1f} s for the single process inside this one; {len(DIST_ARTIFACTS)} artifacts byte-identical, SAM equal as "
               f"sorted lines ({len(body_one)}), global error rate {error_rates[0]} on both", flush=True)
+        if torch.cuda.device_count() >= 2:
+            devices_phase(min(4, torch.cuda.device_count()), counters)
 
     # ---- 7. the polisher CNN on the card against the CPU
     on_cpu, on_card = polisher.load_weights(device="cpu"), polisher.load_weights(device=dev)

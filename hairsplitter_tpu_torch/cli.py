@@ -1,6 +1,7 @@
 """Command-line interface of the PyTorch / CUDA port: the flags of
 `hairsplitter_tpu/cli.py` (the reference `hairsplitter.py:25-59`), plus
-`--device` (default "cuda"; "cpu" runs the plain PyTorch versions).
+`--device` (default "cuda"; "cpu" runs the plain PyTorch versions) and
+`--devices N` (one job over N cards, one process each).
 
 Usage:
     python -m hairsplitter_tpu_torch.cli -i assembly.gfa -f reads.fastq -o out_dir
@@ -94,6 +95,13 @@ def parse_args(argv=None):
         "plain PyTorch versions of the kernels)",
     )
     p.add_argument(
+        "--devices",
+        type=int,
+        default=1,
+        help="cards to spread the job over, one process each from --device's card on: "
+        "reads sharded for mapping, contigs for stages 3-4, stages 5-6 on the first",
+    )
+    p.add_argument(
         "--minimap2-params",
         default="",
         help="minimap2-style seeding overrides applied to the BUILT-IN "
@@ -163,6 +171,7 @@ def main(argv=None):
         debug=args.debug,
         threads=args.threads,
         device=args.device,
+        devices=args.devices,
     )
     if args.minimap2_params:
         cfg, ignored = apply_minimap2_params(cfg, args.minimap2_params)

@@ -17,7 +17,9 @@ fingerprint and stage statistics, `--correct-assembly` (stage 1b,
 `pipeline/tailor.py`) and `-p medaka` (the NN base caller of
 `models/polisher.py`) included. With the `comm` argument
 (`parallel/distributed.py:Comm`, collectives over gloo) the same code path
-runs across several processes, as in the JAX package.
+runs across several processes, as in the JAX package; with
+`PipelineConfig.devices` above 1 one call runs the job over that many cards
+(`parallel/distributed.py:run_on_devices`).
 """
 
 from __future__ import annotations
@@ -116,6 +118,9 @@ class PipelineConfig:
     low_memory_read_batch: int = 2000
     # torch device of every device stage ("cuda" unless asked otherwise)
     device: str = "cuda"
+    # cards one call spreads a job over: this process on `device`'s card,
+    # one worker process on each of the next (on the CPU: CPU processes)
+    devices: int = 1
 
 
 def resolve_device(name: str) -> torch.device:
@@ -279,8 +284,17 @@ def run_pipeline(
     is host data (numpy and Python objects), whatever `cfg.device` is.
     Returns the final GFA path on process 0, None elsewhere.
 
+    With `cfg.devices` above 1 and no `comm`, the call runs the job over
+    that many cards itself (`parallel/distributed.py:run_on_devices`): this
+    process as process 0 and a group of worker processes, started at the
+    first such call and kept for the next.
+
     Each call is one job of the span recorder (`utils/tracing.py`); its
     spans are summed into stage_stats.json (`StageStats`)."""
+    if comm is None and cfg.devices > 1:
+        from ..parallel.distributed import run_on_devices
+
+        return run_on_devices(assembly_path, reads_path, out_dir, cfg)
     with tracing.job():
         return _run_pipeline(assembly_path, reads_path, out_dir, cfg, comm)
 
@@ -293,9 +307,10 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
     os.makedirs(out_dir, exist_ok=True)
     tmp_dir = os.path.join(out_dir, "tmp")
     os.makedirs(tmp_dir, exist_ok=True)
-    log_name = f"hairsplitter.p{me}.log" if comm else "hairsplitter.log"
+    # process 0 writes what a single process writes; the others their own
+    log_name = f"hairsplitter.p{me}.log" if me else "hairsplitter.log"
     log = Logger(os.path.join(out_dir, log_name))
-    stats_name = f"stage_stats.p{me}.json" if comm else "stage_stats.json"
+    stats_name = f"stage_stats.p{me}.json" if me else "stage_stats.json"
     stats = StageStats(log, os.path.join(out_dir, stats_name))
     final_gfa = os.path.join(out_dir, "hairsplitter_final_assembly.gfa")
     final_fasta = os.path.join(out_dir, "hairsplitter_final_assembly.fasta")
@@ -580,7 +595,7 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
         resume = False
     if groups is None:
         log.log("STAGE 4 separating reads")
-        with stats.stage("separate_reads", reads_phased=len(alns)):
+        with stats.stage("separate_reads", reads_phased=len(alns)) as stage:
             if cfg.haploid_coverage > 0:
                 # variants (hence depths) are replicated, so the multiplicity
                 # propagation is deterministic on every process
@@ -618,6 +633,10 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
                 for part in comm.allgather_obj(groups):
                     merged_g.update(part)
                 groups = {c: merged_g[c] for c in assembly.segments}
+                shards = comm.allgather_obj(_shard_seconds(stats, stage))
+        if comm and me == 0:
+            for p, seconds in enumerate(shards):
+                stats.record(f"shard.p{p}", seconds)
         n_sep = sum(
             1
             for g in groups.values()
@@ -759,6 +778,18 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
     return final_gfa
 
 
+def _shard_seconds(stats: StageStats, separate: tracing.Span) -> float:
+    """This process's own seconds in stages 2-4 so far: the mapping and
+    call_variants stages and the open separate_reads span, each less its
+    collectives ("comm"), so that the wait for other processes is left out."""
+    seconds = 0.0
+    for name in ("mapping", "call_variants"):
+        if name in stats.stats:
+            seconds += stats.stats[name]["seconds"] - stats.stats.get(f"{name}.comm", {}).get("seconds", 0.0)
+    comm = separate.children.get("comm")
+    return seconds + time.perf_counter() - separate.start - (comm.seconds if comm else 0.0)
+
+
 def _graph_to_wire(g):
     """AssemblyGraph -> picklable tuple (for cross-process broadcast)."""
     return (
@@ -780,20 +811,27 @@ def _contig_map(threads: int, items, fn):
     """Map over contigs, optionally with host threads (the reference runs an
     OpenMP `parallel for` over contigs, `call_variants.cpp:1276-1280`).
     numpy and torch release the GIL for the heavy parts. Each item runs in
-    a "contig" span under the caller's span, on whichever thread runs it."""
+    a "contig" span under the caller's span, on whichever thread runs it,
+    and with the caller's current CUDA card as its own (a new thread's is
+    card 0, whatever card the process was set to)."""
     items = list(items)
     parent = tracing.current()
+    card = torch.cuda.current_device() if torch.cuda.is_initialized() else None
 
     def run(it):
         with tracing.span("contig", parent=parent):
             return fn(it)
+
+    def run_on_card(it):
+        with torch.cuda.device(card):
+            return run(it)
 
     if threads <= 1 or len(items) <= 1:
         return [run(it) for it in items]
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(max_workers=threads) as ex:
-        return list(ex.map(run, items))
+        return list(ex.map(run if card is None else run_on_card, items))
 
 
 def _write_vcf(path: str, variants: dict[str, ContigVariants]) -> None:
