@@ -34,12 +34,19 @@ Phases (each prints its result; any failure raises and exits non-zero):
      `window_stats_plain` and the numpy twins block by block at clonal30x's
      blocks (26 x 64 rows x 8,192) and an amplicon sample's (2 x 2,000
      rows), one launch a call, timed alone beside its bound and beside the
-     staged round trip that `finish_preps` makes;
+     staged round trip that `finish_preps` makes. Seeding and chaining on the
+     card (`ops/chain_seeds.py:find_chains_cuda`, `csrc/chain_seeds.cu`) on a
+     clonal30x pool job must give the host route's chains
+     (`find_chains_batch`) read by read, one launch a call; the kernel is
+     timed alone with CUDA events beside its bound, the whole card route
+     (packing, copies, unpacking) and the host route on the host clock;
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
      (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
      counter must be > 0 and the check-mode kernel's must stay 0, the
      window-stats kernel must launch once and take every block of stage 3
-     (`call_variants.stats`: `host_blocks` 0), the final GFA must exist and
+     (`call_variants.stats`: `host_blocks` 0), the chain kernel must launch
+     and chain every read of stage 2 on the card (`mapping.chain`:
+     `device_reads` equal to `reads`), the final GFA must exist and
      every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
      `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; the fused
@@ -608,6 +615,84 @@ def window_stats_phase(dev) -> dict:
     return report
 
 
+# integer operations the chain route needs, per unit of work (`bound_ms`):
+# a k-mer position's rolling 2-bit forward and reverse k-mers and its mix64
+# hash, and a sliding-window minimum; a binary-search step of a minimizer's
+# lookup; a hit's sort compare per level, and its sweep and LIS steps
+OPS_KMER_POSITION = 24
+OPS_SEARCH_STEP = 3
+OPS_HIT = 12
+
+
+def chain_phase(dev) -> dict:
+    """Seeding and chaining on the card (`ops/chain_seeds.py`) on one job of
+    the clonal30x cell's pool: the card route's chains equal to the host
+    route's (`core/seeding.py:find_chains_batch`) read by read, one launch a
+    call; the kernel timed alone with CUDA events beside its bound (reads'
+    and index bytes once, against the integer operations above), the whole
+    card route (pack, pinned copies, kernel, unpack) and the host route on
+    the host clock. Returns the numbers."""
+    import torch
+
+    from benchmark import manifest
+    from benchmark.traffic import generate
+    from hairsplitter_tpu_torch.core.mapping import MapConfig
+    from hairsplitter_tpu_torch.core.seeding import MinimizerIndex, find_chains_batch, minimizers
+    from hairsplitter_tpu_torch.ops import chain_seeds as CS
+
+    cell = manifest.load_cell("strains-ont.clonal30x")
+    job = generate.make_job(cell.params, [int(cell.params.get("content_seed", 0)), 0, 0])
+    reads = [s.astype(np.int8) for s in job.reads.seqs]
+    cfg = MapConfig()
+    index = MinimizerIndex.build({c.name: c.assembly.astype(np.int8) for c in job.contigs}, k=cfg.k, w=cfg.w,
+                                 max_occ=cfg.max_occ)
+    t0 = time.perf_counter()
+    ref = find_chains_batch(index, reads, min_anchors=cfg.min_anchors)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    before = CS.chain_seeds_cuda.launches
+    got, done = CS.find_chains_cuda(index, reads, min_anchors=cfg.min_anchors, device=dev)
+    assert CS.chain_seeds_cuda.launches == before + 1 and done == len(reads)
+    for r, (g, e) in enumerate(zip(got, ref)):
+        assert [(c.contig_id, c.strand, c.score) for c in g] == [(c.contig_id, c.strand, c.score) for c in e], \
+            f"read {r}: the card route's chains differ from the host route's"
+        for a, b in zip(g, e):
+            assert np.array_equal(a.q_anchors, b.q_anchors) and np.array_equal(a.t_anchors, b.t_anchors), \
+                f"read {r}: the card route's anchors differ from the host route's"
+    assert len(got) == len(ref)
+    find_chains = lambda: CS.find_chains_cuda(index, reads, min_anchors=cfg.min_anchors, device=dev)  # noqa: E731
+    t0 = time.perf_counter()
+    for _ in range(5):
+        find_chains()
+    route_ms = (time.perf_counter() - t0) / 5 * 1e3
+    # the kernel alone, on the staged reads, at the job's exact scratch size
+    minis = [minimizers(r, index.k, index.w)[1] for r in reads]
+    per_read = [index.lookup(h)[0].size for h in minis]
+    hits = sum(per_read)
+    staging, at = CS.pack_reads(reads, index.hpc, None, pin=True)
+    on_dev = staging.to(dev)
+    idx = CS.device_index(index, dev)
+    scratch = torch.empty(hits * CS.SCRATCH_BYTES_PER_HIT, dtype=torch.uint8, device=dev)
+    result = torch.empty(CS.result_bytes(len(reads), hits, cfg.min_anchors), dtype=torch.uint8, device=dev)
+    launch = lambda: CS.chain_seeds_cuda(on_dev, at, len(reads), idx, index, cfg.min_anchors, 0.1, 0.5,  # noqa: E731
+                                         scratch, hits, result)
+    k_ms = cuda_ms(launch, 20)
+    n_anchors = sum(c.score for read in ref for c in read)
+    positions = sum(max(0, r.size - index.k + 1) for r in reads)
+    n_bytes = int(staging.numel()) + int(idx.numel()) + 8 * CS.N_TOTALS + 8 * len(reads) \
+        + 16 * sum(map(len, ref)) + 8 * n_anchors
+    n_ops = OPS_KMER_POSITION * positions \
+        + OPS_SEARCH_STEP * int(np.ceil(np.log2(max(2, index._hash.size)))) * sum(h.size for h in minis) \
+        + sum(OPS_HIT * max(1, int(np.ceil(np.log2(max(2, h))))) * h for h in per_read)
+    bound = bound_ms(n_bytes, n_ops)
+    print(f"[kernel chain_seeds] clonal30x pool job 0: {len(reads)} reads, {positions / 1e6:.2f} M positions, "
+          f"{hits} hits, {sum(map(len, ref))} chains of {n_anchors} anchors: == find_chains_batch read by read, "
+          f"one launch a call; kernel {k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{n_bytes / 1e6:.2f} MB, {n_ops / 1e6:.1f} M integer operations; {100 * bound[0] / k_ms:.1f}%), "
+          f"card route (pack, copies, kernel, unpack) {route_ms:.2f} ms, host route {host_ms:.1f} ms (host)",
+          flush=True)
+    return dict(ms=k_ms, bound=bound, route_ms=route_ms, host_ms=host_ms, reads=len(reads), hits=hits)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -635,6 +720,7 @@ def main(argv=None) -> int:
     from hairsplitter_tpu_torch.ops.align import BandSpec
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+    from hairsplitter_tpu_torch.ops import chain_seeds as CS
     from hairsplitter_tpu_torch.ops import variants as V
     from hairsplitter_tpu_torch.ops.align_device import (
         align_traceback_rows, banded_fused_plain, myers_fused_plain, readout_device, traceback_scan)
@@ -646,6 +732,7 @@ def main(argv=None) -> int:
         ad.banded_align_batch_dp.launches = 0
         ad.banded_fused_cuda.launches = 0
         V.window_stats_cuda.launches = 0
+        CS.chain_seeds_cuda.launches = 0
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -664,7 +751,7 @@ def main(argv=None) -> int:
           f"{time.perf_counter() - t0:.2f} s -> {native_so}", flush=True)
     counters = {"myers_fused": am.myers_fused_cuda, "myers_rows": am.myers_rows,
                 "banded_dp": ad.banded_align_batch_dp, "banded_fused": ad.banded_fused_cuda,
-                "window_stats": V.window_stats_cuda}
+                "window_stats": V.window_stats_cuda, "chain_seeds": CS.chain_seeds_cuda}
     if args.only == "devices":
         assert torch.cuda.device_count() >= 2, f"one job over several cards needs 2 or more; torch sees " \
             f"{torch.cuda.device_count()}"
@@ -877,6 +964,8 @@ def main(argv=None) -> int:
     # stage 3's window statistics, one launch over every block
     ws = window_stats_phase(dev)
     bounds["window_stats"] = ws["clonal30x"]["bound"]
+    cs = chain_phase(dev)
+    bounds["chain_seeds"] = cs["bound"]
 
     # ---- 4. main path through the CLI
     from hairsplitter_tpu_torch.io.gfa import parse_gfa
@@ -932,6 +1021,12 @@ def main(argv=None) -> int:
         assert ws_counts["host_blocks"] == 0 and ws_counts["device_blocks"] > 0, ws_counts
         print(f"[main] window-stats launches {ws_main}: {ws_counts['device_blocks']} blocks on the card, "
               f"{ws_counts['host_blocks']} through the numpy twins", flush=True)
+        cs_main = CS.chain_seeds_cuda.launches
+        chain_counts = json.load(open(os.path.join(out, "stage_stats.json")))["mapping.chain"]
+        assert cs_main > 0, "the main path never launched the chain kernel"
+        assert chain_counts["device_reads"] == chain_counts["reads"], chain_counts
+        print(f"[main] chain launches {cs_main}: {chain_counts['device_reads']} of stage 2's "
+              f"{chain_counts['reads']} reads chained on the card", flush=True)
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
         out_k2 = os.path.join(root, "out_k2")
@@ -1416,6 +1511,10 @@ def main(argv=None) -> int:
         # no TPU kernel: the JAX package's column stats are jnp; times at clonal30x's blocks
         entry("window_stats", "hairsplitter_tpu_torch/csrc/window_stats.cu", None,
               ws_main, 0, ws["clonal30x"]["ms"], ws["clonal30x"]["plain_ms"]),
+        # no TPU kernel: seeding is host code in the JAX package; its plain
+        # version is the host route (numpy and native C++), timed on the host
+        entry("chain_seeds", "hairsplitter_tpu_torch/csrc/chain_seeds.cu", None,
+              cs_main, 0, cs["ms"], cs["host_ms"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

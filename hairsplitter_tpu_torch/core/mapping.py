@@ -1,7 +1,8 @@
 """Read→assembly mapping: seeding + chaining + batched banded DP + stitching.
 
 Counterpart of `hairsplitter_tpu/core/mapping.py`. Seeding and chaining run
-on host (`core/seeding.py`, native C++); the chunk jobs
+on the card for a CUDA device (`ops/chain_seeds.py`, one launch a call) and
+on the host otherwise (`core/seeding.py`, native C++); the chunk jobs
 between pins go through ONE fused mapping call per `map_reads` (up to a
 memory cap of `MAX_JOBS_PER_LAUNCH` jobs): a DP kernel, readout and
 row-lockstep traceback (`ops/align_device.py`), decoded on host. The DP is
@@ -27,6 +28,7 @@ from ..io.cigar import compress_cigar
 
 from ..ops.align import Q_SENTINEL, T_SENTINEL, BandSpec
 from ..ops.align_device import align_traceback_rows, expand_rows_host
+from ..ops.chain_seeds import find_chains_cuda
 from ..utils import tracing
 
 # jobs per fused call. At B = 256 the fused Myers kernel allocates 0.6 GB for
@@ -225,7 +227,7 @@ def map_reads(
     B = cfg.spec.chunk
     dr = cfg.spec.dr
 
-    with tracing.span("chain", reads=len(read_seqs)):
+    with tracing.span("chain", reads=len(read_seqs)) as sp:
         all_codes = (
             read_codes
             if read_codes is not None
@@ -247,9 +249,15 @@ def map_reads(
                 allowed_cids = [
                     name_to_cid.get(restrict_by_idx[ridx], -1) for ridx in read_indices
                 ]
-            all_chains = find_chains_batch(
-                index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids
-            )
+            if torch.device(device).type == "cuda":
+                all_chains, on_card = find_chains_cuda(
+                    index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids, device=device
+                )
+                sp.add(device_reads=on_card)
+            else:
+                all_chains = find_chains_batch(
+                    index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids
+                )
             named_chains = [
                 [
                     (index.contig_names[ch.contig_id], ch.strand, ch.q_anchors, ch.t_anchors)

@@ -1,4 +1,9 @@
-"""Minimizer seeding and chaining (host, vectorized numpy).
+"""Minimizer seeding and chaining: the host route (vectorized numpy and the
+native C++ twins), which is the CPU route and the twin of the card route.
+On a CUDA device `core/mapping.py:map_reads` chains a call's reads with one
+launch of `csrc/chain_seeds.cu` (`ops/chain_seeds.py:find_chains_cuda`),
+whose chains equal `find_chains_batch`'s bit for bit; `find_chains`, one
+read at a time, stays on the host.
 
 Replaces the reference's dependence on minimap2 for read→assembly mapping
 (`hairsplitter.py:629-630` shells out `minimap2 -a --secondary=no -M 0.05 -Y`).

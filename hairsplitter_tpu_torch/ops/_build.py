@@ -24,7 +24,9 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-SOURCES = ("myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu", "window_stats.cu")
+SOURCES = (
+    "myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu", "window_stats.cu", "chain_seeds.cu",
+)
 HEADERS = ("host_emulation.cuh", "myers_common.cuh", "banded_common.cuh")  # included by the sources: part of the digest
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +35,32 @@ NVCC_FLAGS = (
 
 NATIVE_SOURCE = "hs_native.cpp"
 GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared")
+
+# hs_chain_seeds' arguments before its stream, as hs_chain_seeds_host (the
+# host build of the same source) takes them
+CHAIN_SEEDS_ARGTYPES = [
+    ctypes.c_void_p,  # codes int8
+    ctypes.c_void_p,  # read offsets int64 [n + 1]
+    ctypes.c_void_p,  # original read lengths int32 [n]
+    ctypes.c_void_p,  # original offset of each compressed base int32 (or null)
+    ctypes.c_void_p,  # allowed contig int32 [n] (or null)
+    ctypes.c_int,  # n
+    ctypes.c_void_p,  # index hashes uint64
+    ctypes.c_void_p,  # index positions int32
+    ctypes.c_void_p,  # index contig ids int32
+    ctypes.c_void_p,  # index strands int8
+    ctypes.c_int64,  # index entries
+    ctypes.c_int,  # k
+    ctypes.c_int,  # w
+    ctypes.c_int,  # max_occ
+    ctypes.c_int,  # min_anchors
+    ctypes.c_double,  # min_score_frac
+    ctypes.c_double,  # max_overlap_frac
+    ctypes.c_void_p,  # scratch
+    ctypes.c_int64,  # hit capacity
+    ctypes.c_int64,  # chain capacity
+    ctypes.c_void_p,  # packed result
+]
 
 _lib = None
 build_info: dict = {}  # seconds, library path and ptxas report of the last build/load
@@ -202,5 +230,7 @@ def load_kernels() -> ctypes.CDLL:
             ctypes.c_void_p,  # covered cells int64 [nb]
             ctypes.c_void_p,  # cudaStream_t
         ]
+        lib.hs_chain_seeds.restype = ctypes.c_int
+        lib.hs_chain_seeds.argtypes = CHAIN_SEEDS_ARGTYPES + [ctypes.c_void_p]  # cudaStream_t
         _lib = lib
     return _lib

@@ -145,7 +145,7 @@ def dropped() -> int:
 
 def kernel_launch_counts() -> dict[str, int]:
     """This process's CUDA kernel launches so far, by kernel."""
-    from ..ops import align_dp_cuda, align_myers_cuda, variants
+    from ..ops import align_dp_cuda, align_myers_cuda, chain_seeds, variants
 
     return {
         "myers_fused": align_myers_cuda.myers_fused_cuda.launches,
@@ -153,4 +153,5 @@ def kernel_launch_counts() -> dict[str, int]:
         "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
         "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
         "window_stats": variants.window_stats_cuda.launches,
+        "chain_seeds": chain_seeds.chain_seeds_cuda.launches,
     }

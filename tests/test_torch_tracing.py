@@ -130,7 +130,7 @@ def test_the_ring_is_bounded_and_counts_what_it_drops(monkeypatch):
 
 
 def test_kernel_launch_counts_reads_the_four_kernels():
-    from hairsplitter_tpu_torch.ops import align_dp_cuda, align_myers_cuda, variants
+    from hairsplitter_tpu_torch.ops import align_dp_cuda, align_myers_cuda, chain_seeds, variants
     from hairsplitter_tpu_torch.parallel import distributed
 
     counts = tracing.kernel_launch_counts()
@@ -141,6 +141,7 @@ def test_kernel_launch_counts_reads_the_four_kernels():
         "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
         "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
         "window_stats": variants.window_stats_cuda.launches,
+        "chain_seeds": chain_seeds.chain_seeds_cuda.launches,
     }
 
 
