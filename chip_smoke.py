@@ -43,11 +43,10 @@ Phases (each prints its result; any failure raises and exits non-zero):
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
      (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
      counter must be > 0 and the check-mode kernel's must stay 0, the
-     window-stats kernel must launch once and take every block of stage 3
-     (`call_variants.stats`: `host_blocks` 0), the chain kernel must launch
-     and chain every read of stage 2 on the card (`mapping.chain`:
-     `device_reads` equal to `reads`), the final GFA must exist and
-     every strain's recovery must be >= 0.95;
+     window-stats kernel must launch once for the job and the chain kernel
+     once for each `map_reads` call that seeds (every count here is a
+     difference of `kernel_launch_counts()` over the run), the final GFA
+     must exist and every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
      `PipelineConfig(map=MapConfig(use_myers=False))` on cuda; the fused
      K2 kernel's launch counter must be > 0, K2's check-mode kernel must not
@@ -94,8 +93,8 @@ Phases (each prints its result; any failure raises and exits non-zero):
      the CLI's fingerprint file aside, whose -q reads "0" for "0.0"), the
      log of process i naming `device: cuda:i` and ending with that job's
      launches: at least one fused K1 launch and none of a check mode,
-     process 0's count equal to this process's counters reset just before
-     the run; process 0's `stage_stats.json` holding the collectives and
+     process 0's count equal to this process's launches during the run;
+     process 0's `stage_stats.json` holding the collectives and
      `shard.p<i>`; the output judged correct under the cell's limits by
      `benchmark/reference/judge.py`. `--only devices` runs phases 1, 2 and
      this part alone;
@@ -126,7 +125,7 @@ Phases (each prints its result; any failure raises and exits non-zero):
      `raw_kernel_rate`, which launches K1's check mode), their dicts printed;
      then `bench_torch.main` with its size table cut to `BENCH_TOY` must print
      exactly one JSON line with a positive headline and no failed or skipped
-     block. This phase is no path: its launches, counted from 0 just before
+     block. This phase is no path: its launches, counted from just before
      it, go on a `[launches]` line of their own and into no path's count;
 then prints the kernel table as one JSON line, the card line, and as the
 last line {"ok": true, "device": {...}}.
@@ -146,6 +145,10 @@ import tempfile
 import time
 
 import numpy as np
+
+from benchmark.metrics._roofline import (
+    HBM_BYTES_PER_S, OPS_DP_CELL, OPS_FUSED_ROW, OPS_MYERS_ROW, OPS_WALK_ROW, bound_s)
+from hairsplitter_tpu_torch.ops._build import kernel_launch_counts
 
 B = 256  # main-path chunk (BandSpec.chunk)
 N_CHECK = 8192  # jobs of the kernel-vs-plain check
@@ -368,13 +371,12 @@ def run_processes(repo: str, asm_path: str, reads_path: str, out: str, nproc: in
     return wall
 
 
-def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
+def devices_phase(n: int, device: str = "cuda") -> dict:
     """One pool job of the four-card cell on `device` here, then over `n`
     cards (run_pipeline twice, the CLI once): equal outputs, each process on
-    its own card with its own launches, judged correct. `counters` are the
-    kernel wrappers whose `.launches` this process counts, by log name.
-    With device "cpu" the same runs go over CPU processes, with no launch
-    to count (a rehearsal off the card)."""
+    its own card with its own launches (process 0's equal to this process's
+    during the run), judged correct. With device "cpu" the same runs go
+    over CPU processes, with no launch to count (a rehearsal off the card)."""
     import torch
 
     from benchmark import manifest
@@ -389,10 +391,6 @@ def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
     pipeline = {k: v for k, v in cell.config["pipeline"].items() if k != "devices"}
     logs = ("hairsplitter.log", "stage_stats.json")
 
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
     def outputs(out):
         return sorted(os.path.relpath(os.path.join(d, f), out) for d, _, fs in os.walk(out) for f in fs
                       if os.path.relpath(os.path.join(d, f), out) not in logs)
@@ -402,13 +400,12 @@ def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
         asm, reads = job.paths["assembly"], job.paths["reads"]
         walls, outs = {}, {}
         one = os.path.join(root, "one")
-        reset()
         t0 = time.perf_counter()
         run_pipeline(asm, reads, one, PipelineConfig(**pipeline, device=device))
         walls["one card"] = time.perf_counter() - t0
         for label in ("cards, group started", "cards, group reused", "cli --devices"):
             outs[label] = os.path.join(root, re.sub(r"\W+", "_", label))
-            reset()
+            base = kernel_launch_counts()
             t0 = time.perf_counter()
             if label.startswith("cli"):
                 pids = [p.pid for p in distributed._GROUP.procs]
@@ -418,7 +415,7 @@ def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
             else:
                 run_pipeline(asm, reads, outs[label], PipelineConfig(**pipeline, device=device, devices=n))
             walls[label] = time.perf_counter() - t0
-            here = {name: fn.launches for name, fn in counters.items()}
+            here = launches_since(base)
             names = outputs(one)
             assert outputs(outs[label]) == sorted(names + [f"{k}.p{i}.{e}" for i in range(1, n) for k, e in
                                                            (("hairsplitter", "log"), ("stage_stats", "json"))])
@@ -438,7 +435,7 @@ def devices_phase(n: int, counters: dict, device: str = "cuda") -> dict:
                 assert counts["myers_fused"] > 0 or device == "cpu", f"{label}: process {i} launched no fused K1"
                 assert counts["myers_rows"] == 0 and counts["banded_dp"] == 0, f"{label}: process {i} check mode"
                 if i == 0:
-                    assert all(counts[k] == v for k, v in here.items()), f"{label}: log {counts}, counters {here}"
+                    assert all(counts[k] == v for k, v in here.items()), f"{label}: log {counts}, this process {here}"
                 launches.append(counts["myers_fused"])
             print(f"[devices] {label}: {walls[label]:.3f} s against {walls['one card']:.3f} s on one card; "
                   f"{len(names)} artifacts equal; fused K1 launches by process {launches}", flush=True)
@@ -484,38 +481,6 @@ def build_dataset(root: str):
     return asm_path, reads_path, haps, reads
 
 
-# peaks of one H100 SXM for the kernels' bounds: device memory rate, and the
-# int32 rate outside the tensor cores (132 SMs x 64 INT32 lanes x 1.98 GHz,
-# the card's maximum SM clock as nvidia-smi reports it)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-# integer operations the kernels' functions need (not what a design spends),
-# counted as three-input logic ops, shifts, adds and selects: one Myers row
-# over the 4-word band with the backpointer classes and the window slide
-# (150), the same plus the readout's running quantities (160); one step of a
-# traceback walk, which in either kernel finds the highest non-LEFT bit at or
-# below b in a 128-bit row, takes its UP bit and forms the token (mask, clz,
-# token: 30); one int32 DP cell (code compare, two adds, two minima, two
-# selects, and the run code in the check mode or the two class compares in the
-# fused mode: 8). The fused int32 kernel spends more than these on both: about
-# 10.5 instructions a cell (its five scan minima and the code compare are
-# shared by a lane's four cells) and, because a row's classes lie across the
-# 32 lanes, 8 instructions in every lane plus 14 for each walked row, 270.
-# Its bound is counted with the function's 8 and 30 all the same.
-OPS_MYERS_ROW = 150
-OPS_FUSED_ROW = 160
-OPS_WALK_ROW = 30
-OPS_DP_CELL = 8
-
-
-def bound_ms(n_bytes: int, n_ops: int) -> tuple[float, str]:
-    """Least time in ms the card could take: the larger of bytes over the
-    memory rate and integer operations over the int32 rate, and which."""
-    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / INT32_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 def load_script(name: str):
     """A module of the repo's `scripts/` folder, loaded by its path (the
     folder is no package)."""
@@ -526,6 +491,12 @@ def load_script(name: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
+
+
+def launches_since(before: dict[str, int]) -> dict[str, int]:
+    """Each kernel's launches in this process since `before`, a
+    `kernel_launch_counts()` table."""
+    return {k: v - before[k] for k, v in kernel_launch_counts().items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -571,10 +542,10 @@ def window_stats_phase(dev) -> dict:
         on_dev = staging.to(dev)
         offs = torch.from_numpy(offsets).to(dev)
         flat, code = on_dev[:n], on_dev[n:]
-        before = V.window_stats_cuda.launches
+        before = kernel_launch_counts()
         got = [x.cpu() for x in V.unpack_window_stats(V.window_stats_packed(flat, offs, code), nb, P)]
         torch.cuda.synchronize()
-        assert V.window_stats_cuda.launches == before + 1
+        assert launches_since(before)["window_stats"] == 1
         plain = [x.cpu() for x in V.window_stats_plain(flat.view(nb, R, P), code)]
         for g, r in zip(got, plain):
             assert torch.equal(g, r), f"window_stats_cuda differs from window_stats_plain at {label}"
@@ -593,9 +564,9 @@ def window_stats_phase(dev) -> dict:
         assert len(kernels) == 1, f"one call must launch the kernel once: {[e.name for e in kernels]}"
         trace_ms = kernels[0].time_range.elapsed_us() / 1e3
         out = V.unpack_window_stats(torch.empty(V.window_stats_bytes(nb, P), dtype=torch.uint8, device=dev), nb, P)
-        before = V.window_stats_cuda.launches
+        before = kernel_launch_counts()
         k_ms = cuda_ms(lambda: V.window_stats_cuda(flat, offs, code, out), 50)
-        assert V.window_stats_cuda.launches == before + 51  # a warm-up call, then 50
+        assert launches_since(before)["window_stats"] == 51  # a warm-up call, then 50
         p_ms = cuda_ms(lambda: V.window_stats_plain(flat.view(nb, R, P), code), 5)
         V.window_stats_blocks(tris, codes, dev)
         t0 = time.perf_counter()
@@ -603,7 +574,8 @@ def window_stats_phase(dev) -> dict:
             V.window_stats_blocks(tris, codes, dev)
         staged_ms = (time.perf_counter() - t0) / 5 * 1e3
         n_bytes = (n + nb) * P + 8 * (nb + 1) + V.window_stats_bytes(nb, P)
-        bound = bound_ms(n_bytes, 0)
+        seconds, by = bound_s(n_bytes, 0)
+        bound = (seconds * 1e3, by)
         report[label] = dict(ms=k_ms, trace_ms=trace_ms, plain_ms=p_ms, twins_ms=twins_ms, staged_ms=staged_ms,
                              bound=bound, bytes=n_bytes)
         print(f"[kernel window_stats] {label}: {nb} blocks x {R} rows x {P}: == window_stats_plain and the "
@@ -615,7 +587,7 @@ def window_stats_phase(dev) -> dict:
     return report
 
 
-# integer operations the chain route needs, per unit of work (`bound_ms`):
+# integer operations the chain route needs, per unit of work (`bound_s`):
 # a k-mer position's rolling 2-bit forward and reverse k-mers and its mix64
 # hash, and a sliding-window minimum; a binary-search step of a minimizer's
 # lookup; a hit's sort compare per level, and its sweep and LIS steps
@@ -649,9 +621,9 @@ def chain_phase(dev) -> dict:
     t0 = time.perf_counter()
     ref = find_chains_batch(index, reads, min_anchors=cfg.min_anchors)
     host_ms = (time.perf_counter() - t0) * 1e3
-    before = CS.chain_seeds_cuda.launches
-    got, done = CS.find_chains_cuda(index, reads, min_anchors=cfg.min_anchors, device=dev)
-    assert CS.chain_seeds_cuda.launches == before + 1 and done == len(reads)
+    before = kernel_launch_counts()
+    got = CS.find_chains_cuda(index, reads, min_anchors=cfg.min_anchors, device=dev)
+    assert launches_since(before)["chain_seeds"] == 1
     for r, (g, e) in enumerate(zip(got, ref)):
         assert [(c.contig_id, c.strand, c.score) for c in g] == [(c.contig_id, c.strand, c.score) for c in e], \
             f"read {r}: the card route's chains differ from the host route's"
@@ -683,7 +655,8 @@ def chain_phase(dev) -> dict:
     n_ops = OPS_KMER_POSITION * positions \
         + OPS_SEARCH_STEP * int(np.ceil(np.log2(max(2, index._hash.size)))) * sum(h.size for h in minis) \
         + sum(OPS_HIT * max(1, int(np.ceil(np.log2(max(2, h))))) * h for h in per_read)
-    bound = bound_ms(n_bytes, n_ops)
+    seconds, by = bound_s(n_bytes, n_ops)
+    bound = (seconds * 1e3, by)
     print(f"[kernel chain_seeds] clonal30x pool job 0: {len(reads)} reads, {positions / 1e6:.2f} M positions, "
           f"{hits} hits, {sum(map(len, ref))} chains of {n_anchors} anchors: == find_chains_batch read by read, "
           f"one launch a call; kernel {k_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}: "
@@ -720,19 +693,8 @@ def main(argv=None) -> int:
     from hairsplitter_tpu_torch.ops.align import BandSpec
     from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
     from hairsplitter_tpu_torch.ops import align_myers_cuda as am
-    from hairsplitter_tpu_torch.ops import chain_seeds as CS
-    from hairsplitter_tpu_torch.ops import variants as V
     from hairsplitter_tpu_torch.ops.align_device import (
         align_traceback_rows, banded_fused_plain, myers_fused_plain, readout_device, traceback_scan)
-
-    def reset_launch_counts():
-        """Every kernel wrapper's count to 0: called just before a path is driven."""
-        am.myers_fused_cuda.launches = 0
-        am.myers_rows.launches = 0
-        ad.banded_align_batch_dp.launches = 0
-        ad.banded_fused_cuda.launches = 0
-        V.window_stats_cuda.launches = 0
-        CS.chain_seeds_cuda.launches = 0
 
     # ---- 2. build
     _build.build(force=True)  # always from the checkout's sources
@@ -749,13 +711,10 @@ def main(argv=None) -> int:
     assert os.path.dirname(native_so) == _build.BUILD_DIR, native_so
     print(f"[build] native host library (g++, built now: {'native_seconds' in _build.build_info}): "
           f"{time.perf_counter() - t0:.2f} s -> {native_so}", flush=True)
-    counters = {"myers_fused": am.myers_fused_cuda, "myers_rows": am.myers_rows,
-                "banded_dp": ad.banded_align_batch_dp, "banded_fused": ad.banded_fused_cuda,
-                "window_stats": V.window_stats_cuda, "chain_seeds": CS.chain_seeds_cuda}
     if args.only == "devices":
         assert torch.cuda.device_count() >= 2, f"one job over several cards needs 2 or more; torch sees " \
             f"{torch.cuda.device_count()}"
-        devices_phase(min(4, torch.cuda.device_count()), counters)
+        devices_phase(min(4, torch.cuda.device_count()))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
         return 0
@@ -849,16 +808,20 @@ def main(argv=None) -> int:
     # bounds of the four kernels on the check jobs: the larger of the bytes
     # each function must move (inputs read once, outputs written once) over
     # the memory rate, and its integer operations over the int32 rate
+    # (ms, by what). The fused int32 kernel spends more than the function's
+    # operations: about 10.5 instructions a cell and, because a row's classes
+    # lie across the 32 lanes, 8 in every lane plus 14 for each walked row;
+    # its bound is counted with the function's 8 and 30 all the same
     in_bytes = N_CHECK * (B + T)
-    bounds = {
-        "myers_rows": bound_ms(in_bytes + 4 * N_CHECK * B * 16, N_CHECK * B * OPS_MYERS_ROW),
-        "myers_fused": bound_ms(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
-                                rows_fwd * OPS_FUSED_ROW + rows_bwd * OPS_WALK_ROW),
-        "banded_dp": bound_ms(in_bytes + 8 * N_CHECK + N_CHECK * B * 128 * 2 + N_CHECK * (128 + 2) * 4,
-                              N_CHECK * B * 128 * OPS_DP_CELL),
-        "banded_fused": bound_ms(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
-                                 rows_fwd * 128 * OPS_DP_CELL + rows_bwd * OPS_WALK_ROW),
-    }
+    bounds = {name: (seconds * 1e3, by) for name, (seconds, by) in {
+        "myers_rows": bound_s(in_bytes + 4 * N_CHECK * B * 16, N_CHECK * B * OPS_MYERS_ROW),
+        "myers_fused": bound_s(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
+                               rows_fwd * OPS_FUSED_ROW + rows_bwd * OPS_WALK_ROW),
+        "banded_dp": bound_s(in_bytes + 8 * N_CHECK + N_CHECK * B * 128 * 2 + N_CHECK * (128 + 2) * 4,
+                             N_CHECK * B * 128 * OPS_DP_CELL),
+        "banded_fused": bound_s(in_bytes + 12 * N_CHECK + N_CHECK * (16 + B),
+                                rows_fwd * 128 * OPS_DP_CELL + rows_bwd * OPS_WALK_ROW),
+    }.items()}
     scratch_ms = (rows_fwd + rows_bwd) * 32 / HBM_BYTES_PER_S * 1e3
     print(f"[kernel K1 fused] {N_CHECK} jobs (modes alternating): kernel {f_ms:.4f} ms, plain composition "
           f"{fp_ms:.2f} ms; bound {bounds['myers_fused'][0]:.4f} ms by {bounds['myers_fused'][1]} "
@@ -918,10 +881,10 @@ def main(argv=None) -> int:
         "plain_composition": cuda_ms(lambda: myers_fused_plain(qd, qld, td, tld, modes, spec), 1),
         "check_mode_kernel": cuda_ms(lambda: am.myers_rows(qd, td, spec, emit_tb=True), 10),
     }
-    b32 = bound_ms(N_FUSED * (B + T + 12 + 16 + B), rows_fwd32 * OPS_FUSED_ROW + rows_bwd32 * OPS_WALK_ROW)
+    b32 = bound_s(N_FUSED * (B + T + 12 + 16 + B), rows_fwd32 * OPS_FUSED_ROW + rows_bwd32 * OPS_WALK_ROW)
     print("[fused] K1 at %d jobs: %s; bound %.4f ms by %s; scratch traffic %.4f ms; "
           "device memory of one call %.1f MB" % (
-              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), b32[0], b32[1],
+              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items()), b32[0] * 1e3, b32[1],
               (rows_fwd32 + rows_bwd32) * 32 / HBM_BYTES_PER_S * 1e3, fused_peak / 1e6), flush=True)
     print("[fused] K1 call with its copies as run_jobs makes them (pageable host to device, call, "
           "device to host; host clock): %.3f ms at %d jobs" % (with_copies_ms, N_FUSED), flush=True)
@@ -934,11 +897,11 @@ def main(argv=None) -> int:
         "fused_call": cuda_ms(lambda: align_traceback_rows(qd, qld, td, tld, modes, spec, "pallas"), 20),
         "plain_composition": cuda_ms(lambda: banded_fused_plain(qd, qld, td, tld, modes, spec), 1),
     }
-    b32_k2 = bound_ms(N_FUSED * (B + T + 12 + 16 + B),
-                      rows_fwd32 * 128 * OPS_DP_CELL + rows_bwd32 * OPS_WALK_ROW)
+    b32_k2 = bound_s(N_FUSED * (B + T + 12 + 16 + B),
+                     rows_fwd32 * 128 * OPS_DP_CELL + rows_bwd32 * OPS_WALK_ROW)
     print("[fused] K2 at %d jobs: %s; bound %.4f ms by %s (%d forward rows, %d walked rows); "
           "device memory of one call %.1f MB" % (
-              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in k2_parts.items()), b32_k2[0], b32_k2[1],
+              N_FUSED, ", ".join(f"{k} {v:.4f} ms" for k, v in k2_parts.items()), b32_k2[0] * 1e3, b32_k2[1],
               rows_fwd32, rows_bwd32, fused_k2_peak / 1e6), flush=True)
     occ = _build.load_kernels().hs_banded_fused_occupancy(B)
     print(f"[fused] occupancy of the fused K2 kernel at B={B}: {occ} blocks of one warp per SM, "
@@ -971,6 +934,7 @@ def main(argv=None) -> int:
     from hairsplitter_tpu_torch.io.gfa import parse_gfa
     from hairsplitter_tpu_torch.utils.evaluate import evaluate_phasing
     from hairsplitter_tpu_torch import cli
+    from hairsplitter_tpu_torch.core import mapping
     from hairsplitter_tpu_torch.core.mapping import MapConfig
     from hairsplitter_tpu_torch.pipeline import orchestrate
 
@@ -1000,33 +964,41 @@ def main(argv=None) -> int:
               flush=True)
 
         out = os.path.join(root, "out")
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = am.myers_fused_cuda.launches
-        check_mode_launches = am.myers_rows.launches
+        seeding = []  # reads of each call that seeds (every map_reads call without pins)
+        route = mapping.find_chains
+
+        def counted_find_chains(index, reads_codes, *args, **kwargs):
+            seeding.append(len(reads_codes))
+            return route(index, reads_codes, *args, **kwargs)
+
+        mapping.find_chains = counted_find_chains  # the seeding call site
+        try:
+            base = kernel_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = cli.main(["-i", asm_path, "-f", reads_path, "-o", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            mapping.find_chains = route
+        main_launches = launches_since(base)
+        launches = main_launches["myers_fused"]
+        check_mode_launches = main_launches["myers_rows"]
         assert rc == 0, f"CLI returned {rc}"
         assert launches > 0, "the main path never launched the fused Myers kernel"
         assert check_mode_launches == 0, "the main path launched K1's check-mode kernel"
         print(f"[main] CLI on cuda: K1 fused launches {launches}, K1 check-mode launches "
-              f"{check_mode_launches}, K2 fused launches {ad.banded_fused_cuda.launches}, K2 check-mode "
-              f"launches {ad.banded_align_batch_dp.launches}", flush=True)
+              f"{check_mode_launches}, K2 fused launches {main_launches['banded_fused']}, K2 check-mode "
+              f"launches {main_launches['banded_dp']}", flush=True)
         recovery_main = check_run(out, wall, "main")
-        ws_main = V.window_stats_cuda.launches
-        ws_counts = json.load(open(os.path.join(out, "stage_stats.json")))["call_variants.stats"]
-        assert ws_main == 1, f"stage 3 launched the window-stats kernel {ws_main} times, not once"
-        assert ws_counts["host_blocks"] == 0 and ws_counts["device_blocks"] > 0, ws_counts
-        print(f"[main] window-stats launches {ws_main}: {ws_counts['device_blocks']} blocks on the card, "
-              f"{ws_counts['host_blocks']} through the numpy twins", flush=True)
-        cs_main = CS.chain_seeds_cuda.launches
-        chain_counts = json.load(open(os.path.join(out, "stage_stats.json")))["mapping.chain"]
-        assert cs_main > 0, "the main path never launched the chain kernel"
-        assert chain_counts["device_reads"] == chain_counts["reads"], chain_counts
-        print(f"[main] chain launches {cs_main}: {chain_counts['device_reads']} of stage 2's "
-              f"{chain_counts['reads']} reads chained on the card", flush=True)
+        ws_main = main_launches["window_stats"]
+        assert ws_main == 1, f"stage 3 launched the window-stats kernel {ws_main} times, not once for the job"
+        cs_main = main_launches["chain_seeds"]
+        seeding_calls = sum(1 for n in seeding if n)
+        assert cs_main == seeding_calls > 0, \
+            f"{cs_main} chain launches for {seeding_calls} map_reads calls that seed, not one each"
+        print(f"[main] window-stats launches {ws_main} for the job; chain launches {cs_main}, one for each of "
+              f"the {seeding_calls} map_reads calls that seed ({sum(seeding)} reads)", flush=True)
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
         out_k2 = os.path.join(root, "out_k2")
@@ -1034,15 +1006,16 @@ def main(argv=None) -> int:
         stage2_map_reads = orchestrate.map_reads
 
         def counted_map_reads(*args, **kwargs):
-            k1, k2 = am.myers_fused_cuda.launches, ad.banded_fused_cuda.launches
+            before = kernel_launch_counts()
             alns = stage2_map_reads(*args, **kwargs)
-            stage2["k1"] += am.myers_fused_cuda.launches - k1
-            stage2["k2"] += ad.banded_fused_cuda.launches - k2
+            during = launches_since(before)
+            stage2["k1"] += during["myers_fused"]
+            stage2["k2"] += during["banded_fused"]
             return alns
 
         orchestrate.map_reads = counted_map_reads  # the stage-2 call site
         try:
-            reset_launch_counts()
+            base = kernel_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             orchestrate.run_pipeline(
@@ -1053,10 +1026,11 @@ def main(argv=None) -> int:
             wall = time.perf_counter() - t0
         finally:
             orchestrate.map_reads = stage2_map_reads
-        k2_launches = ad.banded_fused_cuda.launches
-        k2_check_launches = ad.banded_align_batch_dp.launches
-        k1_later = am.myers_fused_cuda.launches
-        assert am.myers_rows.launches == 0, "the use_myers=False run launched K1's check-mode kernel"
+        k2_run = launches_since(base)
+        k2_launches = k2_run["banded_fused"]
+        k2_check_launches = k2_run["banded_dp"]
+        k1_later = k2_run["myers_fused"]
+        assert k2_run["myers_rows"] == 0, "the use_myers=False run launched K1's check-mode kernel"
         print(f"[main K2] run_pipeline(map=MapConfig(use_myers=False)) on cuda: K2 fused launches "
               f"{k2_launches} (stage 2: {stage2['k2']}), K2 check-mode launches {k2_check_launches}, "
               f"K1 launches in stage 2 {stage2['k1']}, "
@@ -1085,10 +1059,10 @@ def main(argv=None) -> int:
         tailor = orchestrate.correct_assembly
 
         def counted_correct_assembly(*args, **kwargs):
-            k1 = am.myers_fused_cuda.launches
+            before = kernel_launch_counts()
             t1 = time.perf_counter()
             graph, report = tailor(*args, **kwargs)
-            stage1b.update(report=report, launches=am.myers_fused_cuda.launches - k1,
+            stage1b.update(report=report, launches=launches_since(before)["myers_fused"],
                            seconds=time.perf_counter() - t1)
             return graph, report
 
@@ -1097,7 +1071,7 @@ def main(argv=None) -> int:
         nn_calls0, nn_seconds0 = nn.calls, nn.seconds
         orchestrate.correct_assembly = counted_correct_assembly  # the stage-1b call site
         try:
-            reset_launch_counts()
+            base = kernel_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             rc = cli.main(["-i", broken_path, "-f", reads_path, "-o", out_mt, "--correct-assembly", "-p", "medaka"])
@@ -1106,13 +1080,14 @@ def main(argv=None) -> int:
         finally:
             orchestrate.correct_assembly = tailor
         assert rc == 0, f"CLI returned {rc}"
+        mt_run = launches_since(base)
         rep = stage1b["report"]
         nn_calls, nn_ms = nn.calls - nn_calls0, (nn.seconds - nn_seconds0) * 1e3
         nn_rest = (nn_ms - nn.slowest * 1e3) / max(nn_calls - 1, 1)
         print(f"[medaka+tailor] CLI --correct-assembly -p medaka on cuda ({card}): stage 1b "
               f"{stage1b['seconds']:.2f} s, K1 fused launches in stage 1b {stage1b['launches']} "
-              f"(whole run {am.myers_fused_cuda.launches}), check-mode launches K1 {am.myers_rows.launches} "
-              f"K2 {ad.banded_align_batch_dp.launches}; tailor: end-to-end reads {rep.end_to_end_before} -> "
+              f"(whole run {mt_run['myers_fused']}), check-mode launches K1 {mt_run['myers_rows']} "
+              f"K2 {mt_run['banded_dp']}; tailor: end-to-end reads {rep.end_to_end_before} -> "
               f"{rep.end_to_end_after} of {rep.n_reads} (history {rep.e2e_history}), {rep.iterations} iterations, "
               f"cuts {rep.cuts}, new links {rep.new_links}, dropped {rep.dropped_low_coverage}; "
               f"NN calls {nn_calls}, total {nn_ms:.1f} ms, mean {nn_ms / max(nn_calls, 1):.3f} ms "
@@ -1120,7 +1095,7 @@ def main(argv=None) -> int:
         assert rep.end_to_end_after > rep.end_to_end_before, "tailor did not raise the end-to-end reads"
         assert len(rep.cuts) >= 1 and len(rep.new_links) >= 1, "tailor made no cut or no link"
         assert stage1b["launches"] > 0, "stage 1b never launched the fused Myers kernel"
-        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+        assert mt_run["myers_rows"] == 0 and mt_run["banded_dp"] == 0, \
             "the --correct-assembly -p medaka run launched a check-mode kernel"
         assert nn_calls > 0, "-p medaka never called the NN caller"
         stats_mt = json.load(open(os.path.join(out_mt, "stage_stats.json")))
@@ -1140,15 +1115,16 @@ def main(argv=None) -> int:
         three_path = os.path.join(root, "assembly_three_contigs.gfa")
         write_gfa(three, three_path)
         out_one, out_two = os.path.join(root, "out_three_single"), os.path.join(root, "out_three_two_processes")
-        reset_launch_counts()
+        base = kernel_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rc = cli.main(["-i", three_path, "-f", reads_path, "-o", out_one, "--no_clean"])
         torch.cuda.synchronize()
         wall_one = time.perf_counter() - t0
-        dist_single_launches = am.myers_fused_cuda.launches
+        single_run = launches_since(base)
+        dist_single_launches = single_run["myers_fused"]
         assert rc == 0 and dist_single_launches > 0
-        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0
+        assert single_run["myers_rows"] == 0 and single_run["banded_dp"] == 0
         print(f"[distributed] single process, three contigs: K1 fused launches {dist_single_launches}", flush=True)
         check_run(out_one, wall_one, "distributed single")
 
@@ -1201,7 +1177,7 @@ def main(argv=None) -> int:
               f"new process and {wall_one:.1f} s for the single process inside this one; {len(DIST_ARTIFACTS)} artifacts byte-identical, SAM equal as "
               f"sorted lines ({len(body_one)}), global error rate {error_rates[0]} on both", flush=True)
         if torch.cuda.device_count() >= 2:
-            devices_phase(min(4, torch.cuda.device_count()), counters)
+            devices_phase(min(4, torch.cuda.device_count()))
 
     # ---- 7. the polisher CNN on the card against the CPU
     on_cpu, on_card = polisher.load_weights(device="cpu"), polisher.load_weights(device=dev)
@@ -1233,15 +1209,15 @@ def main(argv=None) -> int:
         gaf = os.path.join(out, "tmp", "reads_on_new_contig.gaf")
         results = {}
         for device in ("cuda", "cpu"):
-            am.myers_fused_cuda.launches = 0
-            am.myers_rows.launches = 0
+            base = kernel_launch_counts()
             gfa_out = os.path.join(root, f"unzipped_{device}.gfa")
             t0 = time.perf_counter()
             assert graphunzip.main(["unzip", "-g", zipped, "-l", gaf, "-r", reads_path, "-o", gfa_out,
                                     "--supercontigs", os.path.join(root, f"super_{device}.txt"),
                                     "--device", device]) == 0
-            results[device] = (open(gfa_out, "rb").read(), am.myers_fused_cuda.launches, time.perf_counter() - t0)
-            assert am.myers_rows.launches == 0
+            during = launches_since(base)
+            results[device] = (open(gfa_out, "rb").read(), during["myers_fused"], time.perf_counter() - t0)
+            assert during["myers_rows"] == 0
         assert results["cuda"][1] > 0, "graphunzip unzip -r on cuda never launched the fused Myers kernel"
         assert results["cpu"][1] == 0, "graphunzip unzip --device cpu launched a CUDA kernel"
         assert results["cuda"][0] == results["cpu"][0] and len(results["cuda"][0]) > 0, \
@@ -1262,12 +1238,12 @@ def main(argv=None) -> int:
                 f2.write(f">p{k}\n{hap[b:b + 400]}\n")
         mats = {}
         for device in ("cuda", "cpu"):
-            am.myers_fused_cuda.launches = 0
+            base = kernel_launch_counts()
             im_out = os.path.join(root, f"im_{device}.npz")
             assert graphunzip.main(["hic-im", "-g", zipped, "-1", r1_path, "-2", r2_path, "-o", im_out,
                                     "--device", device]) == 0
             data = np.load(im_out, allow_pickle=True)
-            mats[device] = (list(data["names"]), data["m"], am.myers_fused_cuda.launches)
+            mats[device] = (list(data["names"]), data["m"], launches_since(base)["myers_fused"])
         assert mats["cuda"][2] > 0, "graphunzip hic-im on cuda never launched the fused Myers kernel"
         assert mats["cuda"][0] == mats["cpu"][0] and np.array_equal(mats["cuda"][1], mats["cpu"][1]), \
             "graphunzip hic-im: the matrix on cuda differs from the matrix with --device cpu"
@@ -1310,13 +1286,14 @@ def main(argv=None) -> int:
         "map_shard_step K1": lambda mesh: map_shard_step(mesh, n_per_device=N_CHECK, spec=BandSpec(), kernel="myers"),
         "map_shard_step K2": lambda mesh: map_shard_step(mesh, n_per_device=N_CHECK, spec=BandSpec(), kernel="pallas"),
     }
-    reset_launch_counts()
+    base = kernel_launch_counts()
     placed = {name: make(on_card) for name, make in steps.items()}
     results = {name: fn(*args) for name, (fn, args) in placed.items()}
     torch.cuda.synchronize()
-    mesh_k1, mesh_k2 = am.myers_fused_cuda.launches, ad.banded_fused_cuda.launches
+    mesh_run = launches_since(base)
+    mesh_k1, mesh_k2 = mesh_run["myers_fused"], mesh_run["banded_fused"]
     assert mesh_k1 == 1 and mesh_k2 == 1, f"map_shard_step launched K1 {mesh_k1} and K2 {mesh_k2} times, not once each"
-    assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+    assert mesh_run["myers_rows"] == 0 and mesh_run["banded_dp"] == 0, \
         "a sharded step launched a check-mode kernel"
     for name, make in steps.items():
         t0 = time.perf_counter()
@@ -1403,10 +1380,11 @@ def main(argv=None) -> int:
         "training left cuDNN's flags changed"
     # (d) scripts/train_polisher.py's training at its full size, on the card
     with tempfile.TemporaryDirectory(prefix="hs_smoke_train_") as root:
-        reset_launch_counts()
+        base = kernel_launch_counts()
         trained = train_mod.train_and_check(os.path.join(root, "w.npz"), device=dev)
-        train_k1 = am.myers_fused_cuda.launches
-        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+        train_run = launches_since(base)
+        train_k1 = train_run["myers_fused"]
+        assert train_run["myers_rows"] == 0 and train_run["banded_dp"] == 0, \
             "the training launched a check-mode kernel"
         assert os.path.getsize(os.path.join(root, "w.npz")) > 0
     print(f"[train] (d) {trained['steps']} steps on {trained['pairs']} realistic pairs on cuda ({card}): "
@@ -1423,10 +1401,11 @@ def main(argv=None) -> int:
     # ---- 13. the 1 Mbp metagenome of scripts/torch_eval_quality.py
     quality_mod = load_script("torch_eval_quality")
     with tempfile.TemporaryDirectory(prefix="hs_smoke_quality_") as root:
-        reset_launch_counts()
+        base = kernel_launch_counts()
         quality = quality_mod.run_scenario("metagenome", root, 0, device="cuda", n_species=QUALITY_SPECIES)
-        quality_k1 = am.myers_fused_cuda.launches
-        assert am.myers_rows.launches == 0 and ad.banded_align_batch_dp.launches == 0, \
+        quality_run = launches_since(base)
+        quality_k1 = quality_run["myers_fused"]
+        assert quality_run["myers_rows"] == 0 and quality_run["banded_dp"] == 0, \
             "the metagenome run launched a check-mode kernel"
     assert quality_k1 == quality["k1_launches"] and quality_k1 > 0, "the metagenome run never launched K1"
     print(f"[quality] metagenome, {QUALITY_SPECIES} species x 100 kb, 30x of 8 kb reads, 10% error, seed 0: "
@@ -1442,7 +1421,7 @@ def main(argv=None) -> int:
     # path: its launches are counted apart
     import bench_torch
 
-    reset_launch_counts()
+    base = kernel_launch_counts()
     bench_blocks = {
         "fused_production_rate K1": bench_torch.fused_production_rate(spec, "myers", dev),
         "fused_production_rate K2": bench_torch.fused_production_rate(spec, "pallas", dev),
@@ -1471,10 +1450,11 @@ def main(argv=None) -> int:
     assert line["detail"]["device"] == card
     print(f"[bench] bench_torch.main at toy sizes on cuda: one JSON line, headline {line['value']} cells/s at "
           f"{BENCH_TOY['fused_jobs']} jobs, no failed or skipped block, {bench_s:.1f} s", flush=True)
-    print(f"[launches] bench phase (no path): K1 fused {am.myers_fused_cuda.launches}, K1 check mode "
-          f"{am.myers_rows.launches}, K2 fused {ad.banded_fused_cuda.launches}, K2 check mode "
-          f"{ad.banded_align_batch_dp.launches}", flush=True)
-    assert am.myers_rows.launches > 0, "raw_kernel_rate never launched K1's check mode"
+    bench_run = launches_since(base)
+    print(f"[launches] bench phase (no path): K1 fused {bench_run['myers_fused']}, K1 check mode "
+          f"{bench_run['myers_rows']}, K2 fused {bench_run['banded_fused']}, K2 check mode "
+          f"{bench_run['banded_dp']}", flush=True)
+    assert bench_run["myers_rows"] > 0, "raw_kernel_rate never launched K1's check mode"
 
     def entry(name, source, replaces, n_launches, err, ms, plain_ms):
         return {
@@ -1485,8 +1465,8 @@ def main(argv=None) -> int:
         }
 
     # times, errors and bounds are the check jobs' (8,192 x B=256); launches
-    # sum the paths this script drives, each from a count set to 0 just before
-    # it: for K1 the default CLI run, the three-contig single-process run, both
+    # sum the paths this script drives, each counted from just before it: for
+    # K1 the default CLI run, the three-contig single-process run, both
     # processes of the distributed run (read from their logs) and the K1 map
     # step on the mesh; for K2 the use_myers=False run and the K2 map step on
     # the mesh, the polisher's training (its corpus and held-out check) and the

@@ -1,15 +1,16 @@
 """Read→assembly mapping: seeding + chaining + batched banded DP + stitching.
 
-Counterpart of `hairsplitter_tpu/core/mapping.py`. Seeding and chaining run
-on the card for a CUDA device (`ops/chain_seeds.py`, one launch a call) and
-on the host otherwise (`core/seeding.py`, native C++); the chunk jobs
-between pins go through ONE fused mapping call per `map_reads` (up to a
-memory cap of `MAX_JOBS_PER_LAUNCH` jobs): a DP kernel, readout and
-row-lockstep traceback (`ops/align_device.py`), decoded on host. The DP is
-chosen as the JAX package's accelerator path chooses it (`dp_kernel`): the
-Myers kernel at band 128, else the int32 banded-DP kernel, else the plain
-DP. The TPU path's fixed 2048-row buckets, K-tier scan and nibble-packed
-uploads are not carried over.
+Counterpart of `hairsplitter_tpu/core/mapping.py`. Seeding and chaining go
+through `ops/chain_seeds.py:find_chains`, which picks the route by device:
+one launch a call on the card, `core/seeding.py` (native C++) elsewhere.
+The chunk jobs between pins go through ONE fused mapping call per
+`map_reads` (up to a memory cap of `MAX_JOBS_PER_LAUNCH` jobs): a DP kernel,
+readout and row-lockstep traceback (`ops/align_device.py`, which picks
+the kernel or its plain version by the tensors' device), decoded on host.
+The DP is chosen as the JAX package's accelerator path chooses it
+(`dp_kernel`): the Myers kernel at band 128, else the int32 banded-DP
+kernel, else the plain DP. The TPU path's fixed 2048-row buckets, K-tier
+scan and nibble-packed uploads are not carried over.
 """
 
 from __future__ import annotations
@@ -23,12 +24,12 @@ import torch
 from .. import native as _native
 from ..constants import encode_seq, revcomp_codes
 from ..core.datatypes import Alignment
-from ..core.seeding import MinimizerIndex, find_chains_batch
+from ..core.seeding import MinimizerIndex
 from ..io.cigar import compress_cigar
 
 from ..ops.align import Q_SENTINEL, T_SENTINEL, BandSpec
 from ..ops.align_device import align_traceback_rows, expand_rows_host
-from ..ops.chain_seeds import find_chains_cuda
+from ..ops.chain_seeds import find_chains
 from ..utils import tracing
 
 # jobs per fused call. At B = 256 the fused Myers kernel allocates 0.6 GB for
@@ -227,7 +228,7 @@ def map_reads(
     B = cfg.spec.chunk
     dr = cfg.spec.dr
 
-    with tracing.span("chain", reads=len(read_seqs)) as sp:
+    with tracing.span("chain", reads=len(read_seqs)):
         all_codes = (
             read_codes
             if read_codes is not None
@@ -249,15 +250,9 @@ def map_reads(
                 allowed_cids = [
                     name_to_cid.get(restrict_by_idx[ridx], -1) for ridx in read_indices
                 ]
-            if torch.device(device).type == "cuda":
-                all_chains, on_card = find_chains_cuda(
-                    index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids, device=device
-                )
-                sp.add(device_reads=on_card)
-            else:
-                all_chains = find_chains_batch(
-                    index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids
-                )
+            all_chains = find_chains(
+                index, all_codes, min_anchors=cfg.min_anchors, allowed_cids=allowed_cids, device=device
+            )
             named_chains = [
                 [
                     (index.contig_names[ch.contig_id], ch.strand, ch.q_anchors, ch.t_anchors)

@@ -9,6 +9,9 @@ PyTorch headers are compiled, so a build takes seconds. The library name
 carries a hash of the sources, so an edited kernel is never served from a
 stale build. `csrc/hs_native.cpp`, the host-runtime library (seeding, pins,
 POA, token decoding), is built the same way with g++ (`build_native`).
+
+Every kernel launch goes through `launch`, which counts it by kernel in the
+table that `kernel_launch_counts` returns.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -64,6 +69,10 @@ CHAIN_SEEDS_ARGTYPES = [
 
 _lib = None
 build_info: dict = {}  # seconds, library path and ptxas report of the last build/load
+# this process's launches so far, by kernel (`hs_<kernel>` in the library)
+_launches = dict.fromkeys(
+    ("myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds"), 0
+)
 
 
 def _nvcc() -> str:
@@ -234,3 +243,20 @@ def load_kernels() -> ctypes.CDLL:
         lib.hs_chain_seeds.argtypes = CHAIN_SEEDS_ARGTYPES + [ctypes.c_void_p]  # cudaStream_t
         _lib = lib
     return _lib
+
+
+def launch(kernel: str, device, *args) -> None:
+    """One launch of `hs_<kernel>` on `device`'s current stream: `args` are
+    its arguments before the stream. Raises RuntimeError when the launch
+    returns a CUDA error; counts the launch in `kernel_launch_counts()`."""
+    fn = getattr(load_kernels(), f"hs_{kernel}")
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hs_{kernel} launch failed with CUDA error {rc}")
+    _launches[kernel] += 1
+
+
+def kernel_launch_counts() -> dict[str, int]:
+    """This process's CUDA kernel launches so far, by kernel."""
+    return dict(_launches)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import launch, load_kernels
 from .align import BP_DIAG, BP_LEFT, BP_UP, INF, T_SENTINEL, BandSpec
 
 LANES = 128  # the kernel's band width
@@ -103,9 +104,6 @@ def banded_align_batch_torch(q, q_lens, t, t_lens, spec: BandSpec = BandSpec(), 
 
 
 def _banded_dp_cuda(q, q_lens, t, t_lens, emit_enc: bool) -> dict:
-    from ._build import load_kernels
-
-    lib = load_kernels()
     N, B = q.shape
     T = t.shape[1]
     dev = q.device
@@ -121,24 +119,19 @@ def _banded_dp_cuda(q, q_lens, t, t_lens, emit_enc: bool) -> dict:
     }
     if N == 0:  # nothing to launch, and nothing counted
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_banded_dp(
-            q.data_ptr(), t.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(), N, B, T, int(emit_enc),
-            plane.data_ptr(), row_at_q.data_ptr(), colmin_val.data_ptr(), colmin_i.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hs_banded_dp launch failed with CUDA error {rc}")
-    banded_align_batch_dp.launches += 1
+    launch(
+        "banded_dp", q.device,
+        q.data_ptr(), t.data_ptr(), q_lens.data_ptr(), t_lens.data_ptr(), N, B, T, int(emit_enc),
+        plane.data_ptr(), row_at_q.data_ptr(), colmin_val.data_ptr(), colmin_i.data_ptr(),
+    )
     return out
 
 
 def banded_align_batch_dp(q, q_lens, t, t_lens, spec: BandSpec = BandSpec(), emit_enc: bool = False) -> dict:
     """The int32 banded DP in its check mode, bit-identical to
     `banded_align_batch_pallas` of the JAX package; off the mapping path. CUDA tensors launch
-    `csrc/banded_dp.cu` (counted in `banded_align_batch_dp.launches`); CPU
-    tensors take `banded_align_batch_torch`. Like the Pallas kernel, it is
-    specialised to band 128. Takes int8 q [N, B] and t [N, T], int32 q_lens
+    `csrc/banded_dp.cu`; CPU tensors take `banded_align_batch_torch`. Like the Pallas kernel,
+    it is specialised to band 128. Takes int8 q [N, B] and t [N, T], int32 q_lens
     and t_lens [N], all contiguous on one device."""
     _check_shapes(q, q_lens, t, t_lens)
     if spec.band != LANES:
@@ -154,9 +147,6 @@ def banded_align_batch_dp(q, q_lens, t, t_lens, spec: BandSpec = BandSpec(), emi
     raise ValueError(f"unsupported device {q.device}")
 
 
-banded_align_batch_dp.launches = 0
-
-
 # shared memory a block may ask for on Hopper (227 KB)
 MAX_BLOCK_SMEM = 232_448
 
@@ -169,9 +159,7 @@ def banded_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) 
     walk reads stay in shared memory, so the call allocates nothing but its
     output. Takes CUDA tensors only: int8 q [N, B] and t [N, T], int32
     q_lens, t_lens and modes [N], contiguous on one device; B a multiple of
-    16, band 128. Counted in `banded_fused_cuda.launches`."""
-    from ._build import load_kernels
-
+    16, band 128."""
     _check_shapes(q, q_lens, t, t_lens)
     N, B = q.shape
     T = t.shape[1]
@@ -189,8 +177,7 @@ def banded_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) 
         raise ValueError(f"banded_fused_cuda takes CUDA tensors, got {q.device}")
     if q.data_ptr() % 16:
         raise ValueError("q must be 16-byte aligned")
-    lib = load_kernels()
-    smem = lib.hs_banded_fused_smem_bytes(B)
+    smem = load_kernels().hs_banded_fused_smem_bytes(B)
     if smem > MAX_BLOCK_SMEM:
         raise ValueError(
             f"chunk {B} needs {smem} bytes of shared memory per block for the walk's scratch, "
@@ -199,13 +186,5 @@ def banded_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) 
     out = torch.empty((N, 16 + B), dtype=torch.uint8, device=q.device)
     if N == 0:  # nothing to launch, and nothing counted
         return out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_banded_fused(*(x.data_ptr() for x in tensors), N, B, T, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"hs_banded_fused launch failed with CUDA error {rc}")
-    banded_fused_cuda.launches += 1
+    launch("banded_fused", q.device, *(x.data_ptr() for x in tensors), N, B, T, out.data_ptr())
     return out
-
-
-banded_fused_cuda.launches = 0

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from ._build import launch
 from .align import INF, BandSpec
 
 NW = 4  # 128-bit band = 4 uint32 words
@@ -177,9 +178,6 @@ def myers_rows_torch(q: torch.Tensor, t: torch.Tensor, spec: BandSpec = BandSpec
 
 
 def _myers_rows_cuda(q: torch.Tensor, t: torch.Tensor, emit_tb: bool) -> list[torch.Tensor]:
-    from ._build import load_kernels
-
-    lib = load_kernels()
     N, B = q.shape
     T = t.shape[1]
     qT = q.t().contiguous()
@@ -188,12 +186,7 @@ def _myers_rows_cuda(q: torch.Tensor, t: torch.Tensor, emit_tb: bool) -> list[to
     if N == 0:  # nothing to launch, and nothing counted
         return outs
     ptrs = [o.data_ptr() for o in outs] + [None] * (4 - len(outs))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_myers_rows(qT.data_ptr(), tT.data_ptr(), N, B, T, *ptrs, stream)
-    if rc != 0:
-        raise RuntimeError(f"hs_myers_rows launch failed with CUDA error {rc}")
-    myers_rows.launches += 1
+    launch("myers_rows", q.device, qT.data_ptr(), tT.data_ptr(), N, B, T, *ptrs)
     return outs
 
 
@@ -212,24 +205,17 @@ def myers_rows(q: torch.Tensor, t: torch.Tensor, spec: BandSpec = BandSpec(), em
     """Device Myers row loop (the K1 wrapper): (P, M) or with emit_tb
     (P, M, nonleft, isup) int32 word streams [N, B, 4], identical to
     `myers_rows_pallas` + `_words_from_device_jnp`. CUDA tensors launch
-    `csrc/myers_rows.cu` (counted in `myers_rows.launches`); CPU tensors
-    take `myers_rows_torch`'s recurrence."""
+    `csrc/myers_rows.cu`; CPU tensors take `myers_rows_torch`'s recurrence."""
     return tuple(x.permute(1, 0, 2) for x in _myers_rows_rowmajor(q, t, spec, emit_tb))
-
-
-myers_rows.launches = 0
 
 
 def myers_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -> torch.Tensor:
     """The fused K1 launch (`csrc/myers_fused.cu`) on CUDA tensors: DP,
     end-cell readout and traceback walk in one kernel. Returns the fused
     buffer uint8 [N, 16 + B] (int32 cost, clip, start_i, start_b, then one
-    token `d | up << 7` per query row). One launch per call, counted in
-    `myers_fused_cuda.launches`; nothing else runs on the device but the
-    allocation of the output and of the walk's scratch (32 B per row and
-    job: the nonleft and isup words)."""
-    from ._build import load_kernels
-
+    token `d | up << 7` per query row). One launch per call; nothing else
+    runs on the device but the allocation of the output and of the walk's
+    scratch (32 B per row and job: the nonleft and isup words)."""
     _check_inputs(q, t, spec)
     N, B = q.shape
     T = t.shape[1]
@@ -245,24 +231,12 @@ def myers_fused_cuda(q, q_lens, t, t_lens, modes, spec: BandSpec = BandSpec()) -
         raise ValueError("q, t, q_lens, t_lens and modes must be contiguous")
     if q.data_ptr() % 16 or t.data_ptr() % 16:
         raise ValueError("q and t must be 16-byte aligned")
-    lib = load_kernels()
     out = torch.empty((N, 16 + B), dtype=torch.uint8, device=q.device)
     if N == 0:  # nothing to launch, and nothing counted
         return out
     scratch = torch.empty((B, N, 2, NW), dtype=torch.int32, device=q.device)  # (nonleft, isup) per row and job
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_myers_fused(
-            *(x.data_ptr() for x in tensors), N, B, T,
-            scratch.data_ptr(), out.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hs_myers_fused launch failed with CUDA error {rc}")
-    myers_fused_cuda.launches += 1
+    launch("myers_fused", q.device, *(x.data_ptr() for x in tensors), N, B, T, scratch.data_ptr(), out.data_ptr())
     return out
-
-
-myers_fused_cuda.launches = 0
 
 
 # ---------------------------------------------------------------- readout

@@ -1,9 +1,11 @@
-"""Seeding and chaining on the card: one launch of `csrc/chain_seeds.cu`
-turns a batch of reads' base codes into every read's accepted chains.
+"""Seeding and chaining of a batch of reads, one route per device:
+`find_chains` takes the card route on a CUDA device, where one launch of
+`csrc/chain_seeds.cu` turns the reads' base codes into every read's
+accepted chains, and `core/seeding.py:find_chains_batch` elsewhere.
 
-The chains are those of `core/seeding.py:find_chains_batch`, bit for bit:
-that host route (numpy and the native C++ twins) is the CPU route and the
-kernel's twin. `find_chains_cuda` packs the reads into one pinned buffer
+The chains are those of `find_chains_batch`, bit for bit: that host route
+(numpy and the native C++ twins) is the CPU route and the kernel's twin.
+`find_chains_cuda` packs the reads into one pinned buffer
 (homopolymer-compressed on the host when the index is, with each
 compressed base's original offset), copies it in once, launches the kernel
 once and copies one packed result back (`unpack_chains`). The index's four
@@ -20,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.seeding import Chain, MinimizerIndex
+from ..core.seeding import Chain, MinimizerIndex, find_chains_batch
+from ._build import launch
 
 N_TOTALS = 8  # the result's uint64 totals: hits, anchors, chains, reads done, overflow
 T_HITS, T_ANCHORS, T_CHAINS, T_READS, T_OVERFLOW = range(5)
@@ -164,8 +167,8 @@ def hits_estimate(index: MinimizerIndex, reads_codes: list[np.ndarray]) -> int:
 def chains_from_packed(run, n_reads: int, cap_hits: int, min_anchors: int):
     """Drives one batch: `run(cap)` launches the kernel with `cap` scratch
     slots and returns the packed result (uint8 numpy); if the reads' hits
-    pass `cap`, it runs once more with their count. Returns (every read's
-    chains, the reads the kernel finished)."""
+    pass `cap`, it runs once more with their count. Returns every read's
+    chains; raises unless the kernel finished every read."""
     for _ in range(2):
         buf = run(cap_hits)
         totals = buf[: 8 * N_TOTALS].view(np.uint64)
@@ -179,7 +182,7 @@ def chains_from_packed(run, n_reads: int, cap_hits: int, min_anchors: int):
     done = int(totals[T_READS])
     if done != n_reads:
         raise RuntimeError(f"chain_seeds: the kernel finished {done} of {n_reads} reads")
-    return unpack_chains(buf, n_reads, cap_hits, min_anchors), done
+    return unpack_chains(buf, n_reads, cap_hits, min_anchors)
 
 
 def _check(index: MinimizerIndex, reads_codes) -> None:
@@ -192,6 +195,22 @@ def _check(index: MinimizerIndex, reads_codes) -> None:
         raise ValueError("the kernel takes fewer than 2**30 contigs")
 
 
+def find_chains(
+    index: MinimizerIndex,
+    reads_codes: list[np.ndarray],
+    min_anchors: int = 4,
+    allowed_cids: list[int] | None = None,
+    *,
+    device,
+) -> list[list[Chain]]:
+    """Every read's chains (`find_chains_batch`'s, bit for bit): on a CUDA
+    device by `find_chains_cuda`, elsewhere by `find_chains_batch`."""
+    if torch.device(device).type == "cuda":
+        return find_chains_cuda(index, reads_codes, min_anchors=min_anchors, allowed_cids=allowed_cids,
+                                device=device)
+    return find_chains_batch(index, reads_codes, min_anchors=min_anchors, allowed_cids=allowed_cids)
+
+
 def find_chains_cuda(
     index: MinimizerIndex,
     reads_codes: list[np.ndarray],
@@ -200,10 +219,10 @@ def find_chains_cuda(
     max_overlap_frac: float = 0.5,
     allowed_cids: list[int] | None = None,
     device="cuda",
-) -> tuple[list[list[Chain]], int]:
+) -> list[list[Chain]]:
     """`find_chains_batch(index, reads_codes, ...)` on a CUDA device: one
     copy in, one launch (two when the scratch estimate is short), one copy
-    back. Returns (every read's chains, the reads the kernel finished)."""
+    back. Returns every read's chains."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"find_chains_cuda runs on a CUDA device, not {device}")
@@ -211,7 +230,7 @@ def find_chains_cuda(
         device = torch.device("cuda", torch.cuda.current_device())
     n = len(reads_codes)
     if n == 0:
-        return [], 0
+        return []
     _check(index, reads_codes)
     staging, at = pack_reads(reads_codes, index.hpc, allowed_cids, pin=True)
     reads = staging.to(device, non_blocking=True)
@@ -235,28 +254,18 @@ def chain_seeds_cuda(reads, at, n_reads, idx, index, min_anchors, min_score_frac
     """One launch of `csrc/chain_seeds.cu` on CUDA tensors: `reads` is
     `pack_reads`' buffer (parts at `at`), `idx` `device_index`'s, `scratch`
     `cap * SCRATCH_BYTES_PER_HIT` bytes and `result` `result_bytes(n_reads,
-    cap, min_anchors)` bytes. Counted in `chain_seeds_cuda.launches`."""
-    from ._build import load_kernels
-
+    cap, min_anchors)` bytes."""
     tensors = (reads, idx, scratch, result)
     if not all(x.device == reads.device and x.is_contiguous() and x.dtype == torch.uint8 for x in tensors) \
             or reads.device.type != "cuda":
         raise ValueError("chain_seeds_cuda takes contiguous uint8 CUDA tensors on one device")
     if scratch.numel() < cap * SCRATCH_BYTES_PER_HIT or result.numel() < result_bytes(n_reads, cap, min_anchors):
         raise ValueError("chain_seeds_cuda: scratch or result smaller than the capacity")
-    lib = load_kernels()
     ptr = {name: reads.data_ptr() + offset for name, offset in at.items()}
-    with torch.cuda.device(reads.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_chain_seeds(
-            ptr["codes"], ptr["read_off"], ptr["qlen"], ptr.get("orig"), ptr.get("allowed"), n_reads,
-            *_index_pointers(idx.data_ptr(), int(index._hash.size)), int(index._hash.size),
-            index.k, index.w, index.max_occ, min_anchors, float(min_score_frac), float(max_overlap_frac),
-            scratch.data_ptr(), cap, chain_capacity(cap, min_anchors), result.data_ptr(), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hs_chain_seeds launch failed with CUDA error {rc}")
-    chain_seeds_cuda.launches += 1
-
-
-chain_seeds_cuda.launches = 0
+    launch(
+        "chain_seeds", reads.device,
+        ptr["codes"], ptr["read_off"], ptr["qlen"], ptr.get("orig"), ptr.get("allowed"), n_reads,
+        *_index_pointers(idx.data_ptr(), int(index._hash.size)), int(index._hash.size),
+        index.k, index.w, index.max_occ, min_anchors, float(min_score_frac), float(max_overlap_frac),
+        scratch.data_ptr(), cap, chain_capacity(cap, min_anchors), result.data_ptr(),
+    )

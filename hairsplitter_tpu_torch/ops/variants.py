@@ -3,15 +3,16 @@
 Counterpart of `hairsplitter_tpu/ops/variants.py`: per-column top-3 trimer
 counts and coverage, window error counts, the four contingency matmuls of
 the pairwise column correlation with its gates, and the partition keep and
-rescue scans, as torch ops on any device. The numpy twins the size gates
-select (`column_stats_host`, `window_error_stats_host`, `suspect_mask`) are
-copied because the JAX module loads JAX.
+rescue scans, as torch ops on any device. The numpy twins
+(`column_stats_host`, `window_error_stats_host`, `suspect_mask`) are copied
+because the JAX module loads JAX; the first two are the tests' reference
+for the window statistics.
 
 The window statistics have a CUDA kernel (`csrc/window_stats.cu`) that takes
 the window blocks as one ragged batch, each block at its own row count
 (`window_stats_packed`); `window_stats_plain` is its plain PyTorch version,
 which CPU tensors take, and `window_stats_blocks` stages numpy blocks
-through it with one copy each way.
+through either with one copy each way: stage 3's one route on every device.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..constants import GAP, N_TRIMERS, TRIMER_ABSENT
+from ._build import launch
 
 # int32 flat-index budget of one bincount pass (elements of the pileup)
 _STATS_CHUNK_CELLS = 1 << 27
@@ -123,31 +125,19 @@ def window_stats_packed(flat: torch.Tensor, offsets: torch.Tensor, codes_w: torc
 
 def window_stats_cuda(flat, offsets, codes_w, out) -> None:
     """One launch of `csrc/window_stats.cu` on CUDA tensors, writing the five
-    results into `out` (`unpack_window_stats`' views). Counted in
-    `window_stats_cuda.launches`."""
-    from ._build import load_kernels
-
+    results into `out` (`unpack_window_stats`' views)."""
     nb, P = codes_w.shape
     if not (flat.device == offsets.device == codes_w.device and flat.device.type == "cuda"):
         raise ValueError("window_stats_cuda takes CUDA tensors on one device")
     if flat.shape[0] >= 1 << 27:
         raise ValueError(f"{flat.shape[0]} rows: a warp's sums of a column block are 32-bit")
     flat, offsets, codes_w = (x.contiguous() for x in (flat, offsets, codes_w))
-    lib = load_kernels()
     if nb == 0:  # nothing to launch, and nothing counted
         return
-    with torch.cuda.device(flat.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.hs_window_stats(
-            flat.data_ptr(), offsets.data_ptr(), codes_w.data_ptr(), nb, P,
-            *(x.data_ptr() for x in out), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"hs_window_stats launch failed with CUDA error {rc}")
-    window_stats_cuda.launches += 1
-
-
-window_stats_cuda.launches = 0
+    launch(
+        "window_stats", flat.device, flat.data_ptr(), offsets.data_ptr(), codes_w.data_ptr(), nb, P,
+        *(x.data_ptr() for x in out),
+    )
 
 
 def pack_window_blocks(tris: list[np.ndarray], codes_ws: list[np.ndarray], pin: bool = False):

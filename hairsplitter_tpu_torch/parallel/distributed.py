@@ -63,9 +63,9 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
+from ..ops import _build
 from ..pipeline.orchestrate import Logger, PipelineConfig, run_pipeline
 from ..utils import tracing
-from ..utils.tracing import kernel_launch_counts
 
 
 @dataclass(frozen=True)
@@ -210,7 +210,6 @@ def load_program(device: str) -> None:
     """Load the native library and, on CUDA, the kernels (building them at
     a checkout's first use)."""
     from .. import native
-    from ..ops import _build
 
     native.get_lib()
     if torch.device(device).type == "cuda":
@@ -220,7 +219,7 @@ def load_program(device: str) -> None:
 def _log_launches(out_dir: str, log_name: str, before: dict[str, int]) -> None:
     """Log the job's CUDA kernel launches: the counts since `before`, so
     that each job of a long-lived process counts its own."""
-    counts = {k: v - before.get(k, 0) for k, v in kernel_launch_counts().items()}
+    counts = {k: v - before.get(k, 0) for k, v in _build.kernel_launch_counts().items()}
     Logger(os.path.join(out_dir, log_name)).log(
         "kernel launches: " + " ".join(f"{k}={v}" for k, v in counts.items()))
 
@@ -258,7 +257,7 @@ def _worker(rank: int, world: int, port: int, device: str, threads: int, timeout
             break
         assembly_path, reads_path, out_dir, cfg = job
         try:
-            before = kernel_launch_counts()
+            before = _build.kernel_launch_counts()
             run_pipeline(assembly_path, reads_path, out_dir, replace(cfg, device=device), comm=Comm())
             _log_launches(out_dir, f"hairsplitter.p{rank}.log", before)
         except BaseException:
@@ -359,7 +358,7 @@ class WorkerGroup:
             for conn in self.conns:
                 conn.send(job)
             torch.set_num_threads(thread_share(self.devices))
-            before = kernel_launch_counts()
+            before = _build.kernel_launch_counts()
             with torch.cuda.device(torch.device(dev)) if dev.startswith("cuda") else contextlib.nullcontext():
                 out = run_pipeline(assembly_path, reads_path, out_dir, replace(cfg, device=dev), comm=Comm())
             for rank in range(1, self.devices):
@@ -471,7 +470,7 @@ def main(argv=None):
               file=sys.stderr, flush=True)
     init_runtime(cfg_dist)
     try:
-        before = kernel_launch_counts()
+        before = _build.kernel_launch_counts()
         run_pipeline_distributed(args.assembly, args.reads, args.out, cfg, dist=cfg_dist)
         worker = args.num_processes > 1 and args.process_id > 0
         _log_launches(args.out, f"hairsplitter.p{args.process_id}.log" if worker else "hairsplitter.log", before)

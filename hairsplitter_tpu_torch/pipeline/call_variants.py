@@ -3,11 +3,12 @@
 Port of `hairsplitter_tpu/pipeline/call_variants.py`. It follows the JAX
 package's accelerator branches on every device, with the same size gates:
 the device chi² path for >= 512 suspect columns (rescue: >= 512 candidates).
-The window column stats run on a CUDA device for every block, in one launch
-of `csrc/window_stats.cu` per `finish_preps`; off CUDA they keep the JAX
-package's gate: device column stats for pileup windows whose row bucket
-reaches `device_min_rows`, and below it the host numpy twins, as in the
-accelerator build of the JAX package. Every route gives the same integers.
+The window column stats of every block of every pending contig take one
+route on every device: `finish_preps` hands them all to
+`ops/variants.py:window_stats_blocks`, one copy in, one pass and one copy
+back; on a CUDA device the pass is one launch of `csrc/window_stats.cu`,
+elsewhere its plain PyTorch version. It gives the integers of the JAX
+package's column stats.
 
 Per contig: build dense pileup windows, run the device column-stat kernels,
 apply the suspect rules, then keep only *robust* variants — columns whose
@@ -34,17 +35,13 @@ from ..constants import GAP, TRIMER_ABSENT, encode_seq
 from ..core.datatypes import Alignment
 from ..pipeline.pileup import WINDOW, build_window_blocks, orient_read
 from ..utils import tracing
-from ..utils.shapes import pow2_bucket
 
 from ..ops.cluster import cw_numpy
 from ..ops.variants import (
-    column_stats_host,
     pairwise_column_correlation_packed,
     partition_column_keep_packed,
     partition_rescue_keep_packed,
     suspect_mask,
-    window_error_stats_host,
-    window_stats_batch,
     window_stats_blocks,
 )
 
@@ -136,11 +133,6 @@ class VariantCallConfig:
     max_partition_span: int = 50_000
     p_value: float = 1e-3
     error_cap: float = 0.15  # hairsplitter.py:691-692
-    # off CUDA, pileup windows with fewer (bucketed) reads than this use the
-    # numpy column-stats twins: device dispatch + per-bucket compiles only pay
-    # off on big windows. On CUDA every window goes to the one kernel launch
-    # of `finish_preps`, which compiles nothing per bucket
-    device_min_rows: int = 256
 
 
 def _chi2_tables(n00, n01, n10, n11):
@@ -426,7 +418,6 @@ class PendingPrep:
     prep: ContigPrep
     blocks: list
     codes_ws: list[np.ndarray]
-    buckets: list[int]
 
 
 def prepare_contig_host(
@@ -462,11 +453,7 @@ def prepare_contig_host(
         codes_w = np.full(cfg.window, 5, dtype=np.int8)
         codes_w[: blk.length] = contig_codes[blk.start : blk.start + blk.length]
         codes_ws.append(codes_w)
-    # static-shape bucket on the ragged read axis: one compile per bucket,
-    # not per distinct read count (absent-trimer rows are no-ops); below the
-    # bucket floor the numpy twins win over device dispatch latency.
-    buckets = [pow2_bucket(blk.tri.shape[0], minimum=32) for blk in blocks]
-    return PendingPrep(prep=prep, blocks=blocks, codes_ws=codes_ws, buckets=buckets)
+    return PendingPrep(prep=prep, blocks=blocks, codes_ws=codes_ws)
 
 
 def finish_preps(
@@ -475,60 +462,25 @@ def finish_preps(
     *,
     device,
 ) -> dict[str, ContigPrep]:
-    """Column stats for every pending contig. On a CUDA device every block of
-    ALL contigs goes to the card in one kernel launch (one "device_pass"
-    span). Elsewhere the blocks whose row bucket reaches `device_min_rows`
-    run in batched passes on `device` (a "device_pass" span per 256
-    blocks), the rest through the numpy twins (identical results) while the
-    results are collected ("host_pass"). The span that encloses the call
-    gets the counts `device_blocks` and `host_blocks`."""
-    keys = [(pi, i) for pi, pp in enumerate(pending) for i in range(len(pp.blocks))]
-    results: dict[tuple[int, int], tuple] = {}
-    if torch.device(device).type == "cuda":
-        if keys:
-            with tracing.span("device_pass", blocks=len(keys)):
-                got = window_stats_blocks(
-                    [pending[pi].blocks[i].tri for pi, i in keys],
-                    [pending[pi].codes_ws[i] for pi, i in keys],
-                    device,
-                )
-                for bi, key in enumerate(keys):
-                    results[key] = tuple(x[bi] for x in got)
-    else:
-        eligible = [(pi, i) for pi, i in keys if pending[pi].buckets[i] >= cfg.device_min_rows]
-        CHUNK = 256  # blocks per pass, to cap device memory
-        for lo in range(0, len(eligible), CHUNK):
-            part = eligible[lo : lo + CHUNK]
-            with tracing.span("device_pass", blocks=len(part)):
-                rows = max(pending[pi].blocks[i].tri.shape[0] for pi, i in part)
-                # absent-trimer padding rows are no-ops
-                tri_p = np.full((len(part), rows, cfg.window), TRIMER_ABSENT, dtype=np.int8)
-                codes_p = np.stack([pending[pi].codes_ws[i] for pi, i in part])
-                for bi, (pi, i) in enumerate(part):
-                    blk = pending[pi].blocks[i]
-                    tri_p[bi, : blk.tri.shape[0]] = blk.tri
-                got = window_stats_batch(
-                    torch.from_numpy(tri_p).to(device), torch.from_numpy(codes_p).to(device)
-                )
-                tc_b, tn_b, cov_b, mm_b, cc_b = (x.cpu().numpy() for x in got)
-                for bi, key in enumerate(part):
-                    results[key] = (tc_b[bi], tn_b[bi], cov_b[bi], mm_b[bi], cc_b[bi])
-    enclosing = tracing.current()
-    if enclosing is not None:
-        enclosing.add(device_blocks=len(results), host_blocks=len(keys) - len(results))
+    """Column stats for every pending contig: every block of ALL contigs
+    goes to `window_stats_blocks` on `device` in one call (one "device_pass"
+    span), then the results are collected into the ContigPreps ("host_pass").
+    `cfg` stays in the signature, as in the JAX package's; nothing here
+    reads it."""
+    tris = [blk.tri for pp in pending for blk in pp.blocks]
+    if tris:
+        with tracing.span("device_pass", blocks=len(tris)):
+            tc, tn, cov, mm, cc = window_stats_blocks(tris, [c for pp in pending for c in pp.codes_ws], device)
     out: dict[str, ContigPrep] = {}
-    with tracing.span("host_pass", blocks=len(keys) - len(results)):
-        for pi, pp in enumerate(pending):
+    with tracing.span("host_pass"):
+        b = 0
+        for pp in pending:
             prep = pp.prep
-            for i, blk in enumerate(pp.blocks):
-                if (pi, i) in results:
-                    tc, tn, cov, mm, cc = results[(pi, i)]
-                else:
-                    tc, tn, cov = column_stats_host(blk.tri)
-                    mm, cc = window_error_stats_host(blk.tri, pp.codes_ws[i])
-                prep.mismatches += int(mm)
-                prep.cells += int(cc)
-                prep.win_stats.append((blk, np.asarray(tc), np.asarray(tn), np.asarray(cov)))
+            for blk in pp.blocks:
+                prep.mismatches += int(mm[b])
+                prep.cells += int(cc[b])
+                prep.win_stats.append((blk, tc[b], tn[b], cov[b]))
+                b += 1
             out[prep.contig] = prep
     return out
 

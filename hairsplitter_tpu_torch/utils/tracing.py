@@ -142,16 +142,3 @@ def dropped() -> int:
     """How many closed spans have fallen out of the ring."""
     return RECORDER.dropped()
 
-
-def kernel_launch_counts() -> dict[str, int]:
-    """This process's CUDA kernel launches so far, by kernel."""
-    from ..ops import align_dp_cuda, align_myers_cuda, chain_seeds, variants
-
-    return {
-        "myers_fused": align_myers_cuda.myers_fused_cuda.launches,
-        "myers_rows": align_myers_cuda.myers_rows.launches,
-        "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
-        "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
-        "window_stats": variants.window_stats_cuda.launches,
-        "chain_seeds": chain_seeds.chain_seeds_cuda.launches,
-    }

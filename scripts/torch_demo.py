@@ -36,7 +36,7 @@ def main() -> int:
 
     from hairsplitter_tpu_torch.io.fasta import write_fasta
     from hairsplitter_tpu_torch.io.gfa import parse_gfa
-    from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+    from hairsplitter_tpu_torch.ops._build import kernel_launch_counts
     from hairsplitter_tpu_torch.pipeline.orchestrate import PipelineConfig, run_pipeline
     from hairsplitter_tpu_torch.utils import sim as S
     from hairsplitter_tpu_torch.utils.evaluate import evaluate_phasing
@@ -60,7 +60,7 @@ def main() -> int:
     S.write_sim_fasta(rd, reads)
     print(f"{len(reads.seqs)} reads ({sum(len(s) for s in reads.seqs)/1e6:.1f} Mbp) -> {root}")
 
-    launches0 = am.myers_fused_cuda.launches
+    launches0 = kernel_launch_counts()["myers_fused"]
     t0 = time.time()
     final = run_pipeline(asm, rd, os.path.join(root, "out"), PipelineConfig(device=args.device))
     wall = time.time() - t0
@@ -75,7 +75,8 @@ def main() -> int:
         if acc * 2 >= tot:
             break
     print()
-    print(f"done in {wall:.0f}s on {args.device} ({am.myers_fused_cuda.launches - launches0} fused K1 launches) "
+    k1 = kernel_launch_counts()["myers_fused"] - launches0
+    print(f"done in {wall:.0f}s on {args.device} ({k1} fused K1 launches) "
           f"-> {final}")
     print(f"  contigs: {len(g.segments)} (N50 {n50/1e3:.0f} kb)")
     for h, r in enumerate(ev.haplotype_recovery):

@@ -159,7 +159,7 @@ def run_scenario(scenario: str, root: str, seed: int = 0, *, device: str = "cuda
     line's fields."""
     import torch
 
-    from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+    from hairsplitter_tpu_torch.ops._build import kernel_launch_counts
     from hairsplitter_tpu_torch.pipeline.orchestrate import PipelineConfig, run_pipeline
 
     if scenario == "metagenome":
@@ -170,13 +170,13 @@ def run_scenario(scenario: str, root: str, seed: int = 0, *, device: str = "cuda
             root, seed, length=length, rare_cov=rare_cov, use_sim2=use_sim2)
     out = os.path.join(root, "out")
     cuda = torch.device(device).type == "cuda"
-    launches0 = am.myers_fused_cuda.launches
+    launches0 = kernel_launch_counts()["myers_fused"]
     t0 = time.perf_counter()
     final = run_pipeline(asm_path, reads_path, out, PipelineConfig(device=device))
     if cuda:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = am.myers_fused_cuda.launches - launches0
+    launches = kernel_launch_counts()["myers_fused"] - launches0
     score = score_metagenome(final, truth) if scenario == "metagenome" else score_skewed(final, truth)
     with open(os.path.join(out, "stage_stats.json")) as f:
         stages = {k: v["seconds"] for k, v in json.load(f).items()}

@@ -65,18 +65,18 @@ def train_and_check(out: str, steps: int = 800, pairs: int = 48, seed: int = 0, 
     check. Returns the numbers the script prints."""
     import torch
 
-    from hairsplitter_tpu_torch.ops import align_myers_cuda as am
+    from hairsplitter_tpu_torch.ops._build import kernel_launch_counts
 
     if is_shipped(out):
         raise ValueError(f"{out} is a shipped weights file; write the trained weights elsewhere")
     timings: dict = {}
-    launches0 = am.myers_fused_cuda.launches
+    launches0 = kernel_launch_counts()["myers_fused"]
     t0 = time.perf_counter()
     nn = P.train_polisher(seed=seed, steps=steps, realistic=True, n_pairs=pairs, device=device, timings=timings)
     train_wall = time.perf_counter() - t0
-    corpus_launches = am.myers_fused_cuda.launches - launches0
+    corpus_launches = kernel_launch_counts()["myers_fused"] - launches0
     P.save_weights(nn, out)
-    launches1 = am.myers_fused_cuda.launches
+    launches1 = kernel_launch_counts()["myers_fused"]
     t1 = time.perf_counter()
     acc_nn, acc_maj = held_out_accuracy(nn, device)
     if torch.device(device).type == "cuda":
@@ -95,7 +95,7 @@ def train_and_check(out: str, steps: int = 800, pairs: int = 48, seed: int = 0, 
         "held_out_accuracy": acc_nn,
         "held_out_majority": acc_maj,
         "held_out_s": time.perf_counter() - t1,
-        "held_out_k1_launches": am.myers_fused_cuda.launches - launches1,
+        "held_out_k1_launches": kernel_launch_counts()["myers_fused"] - launches1,
     }
 
 

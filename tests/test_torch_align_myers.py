@@ -11,6 +11,7 @@ import jax.numpy as jnp
 
 from hairsplitter_tpu.ops.align import BandSpec as JaxBandSpec
 from hairsplitter_tpu.ops.align_myers_pallas import _words_from_device_jnp, myers_rows_pallas
+from hairsplitter_tpu_torch.ops import _build
 from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
 from tests.test_align_myers import _random_batch
@@ -49,10 +50,10 @@ def test_myers_rows_torch_equals_pallas(kind, n, seed):
 
 def test_cpu_wrapper_runs_plain_version_without_launch():
     q, _, t, _ = _random_batch(np.random.default_rng(5), 8, JSPEC)
-    before = am.myers_rows.launches
+    before = _build.kernel_launch_counts()
     got = am.myers_rows(torch.from_numpy(q), torch.from_numpy(t), SPEC, emit_tb=True)
     ref = am.myers_rows_torch(torch.from_numpy(q), torch.from_numpy(t), SPEC, emit_tb=True)
-    assert am.myers_rows.launches == before
+    assert _build.kernel_launch_counts() == before
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
 

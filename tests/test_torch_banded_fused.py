@@ -29,7 +29,6 @@ from hairsplitter_tpu.ops.align import BandSpec as JaxBandSpec
 from hairsplitter_tpu.ops.align_device import align_traceback_rows as jax_align_traceback_rows
 from hairsplitter_tpu_torch.ops import _build
 from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
-from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
 from hairsplitter_tpu_torch.ops.align_device import (
     align_traceback_rows,
@@ -49,10 +48,6 @@ def _jobs(kind: str, spec):
     return random_jobs(np.random.default_rng(21), 77, spec)
 
 
-def _launch_counts():
-    return ad.banded_fused_cuda.launches, ad.banded_align_batch_dp.launches, am.myers_fused_cuda.launches
-
-
 @pytest.mark.parametrize("pattern", MODE_PATTERNS)
 @pytest.mark.parametrize("kind", ["edge", "random"])
 def test_fused_cpu_call_equals_jax(kind, pattern):
@@ -63,9 +58,9 @@ def test_fused_cpu_call_equals_jax(kind, pattern):
     modes = mode_pattern(pattern, q.shape[0])
     ref = np.asarray(jax_align_traceback_rows(q, ql, t, tl, modes, JSPEC, "pallas", interpret=True))
     tensors = [torch.from_numpy(x) for x in (q, ql, t, tl, modes)]
-    before = _launch_counts()
+    before = _build.kernel_launch_counts()
     got = align_traceback_rows(*tensors, SPEC, "pallas").numpy()
-    assert _launch_counts() == before  # CPU tensors never launch
+    assert _build.kernel_launch_counts() == before  # CPU tensors never launch
     assert got.dtype == np.uint8 and got.shape == (q.shape[0], 16 + CHUNK)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(banded_fused_plain(*tensors, SPEC).numpy(), ref)
@@ -86,7 +81,7 @@ def test_plain_composition_equals_the_myers_one_on_every_defined_length(chunk):
 def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
     q, ql, t, tl = (torch.from_numpy(x) for x in _jobs("random", SPEC))
     modes = torch.zeros(q.shape[0], dtype=torch.int32)
-    before = _launch_counts()
+    before = _build.kernel_launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
         ad.banded_fused_cuda(q, ql, t, tl, modes, SPEC)
     with pytest.raises(ValueError, match="band 128"):
@@ -97,7 +92,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         ad.banded_fused_cuda(q[:, :40].contiguous(), ql, t, tl, modes, BandSpec(chunk=40, band=128))
     with pytest.raises(TypeError, match="modes"):
         ad.banded_fused_cuda(q, ql, t, tl, modes.to(torch.int64), SPEC)
-    assert _launch_counts() == before
+    assert _build.kernel_launch_counts() == before
 
 
 def test_fused_call_rejects_other_devices_and_other_bands():

@@ -169,7 +169,7 @@ def pack_chains(chains, min_anchors: int):
 @pytest.fixture(scope="module")
 def host_kernel(tmp_path_factory):
     """`find_chains_cuda`'s driver over the host build of the kernel:
-    returns (chains, reads finished, scratch sizes run)."""
+    returns (chains, scratch sizes run: one a launch)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel body for the host")
@@ -208,8 +208,8 @@ def host_kernel(tmp_path_factory):
             assert rc == 0
             return result
 
-        chains, done = CS.chains_from_packed(run, n, cap or CS.hits_estimate(index, reads), min_anchors)
-        return chains, done, caps
+        chains = CS.chains_from_packed(run, n, cap or CS.hits_estimate(index, reads), min_anchors)
+        return chains, caps
 
     return run_batch
 
@@ -217,8 +217,8 @@ def host_kernel(tmp_path_factory):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_body_equals_host_route(host_kernel, case):
     index, reads, allowed = CASES[case](CPU_READS)
-    chains, done, caps = host_kernel(index, reads, allowed)
-    assert done == len(reads) and len(caps) == 1
+    chains, caps = host_kernel(index, reads, allowed)
+    assert len(caps) == 1
     assert_same_chains(chains, host_chains(index, reads, allowed))
 
 
@@ -240,10 +240,10 @@ def test_edge_case_holds_its_edges():
 
 def test_kernel_body_relaunches_when_the_scratch_is_short(host_kernel):
     index, reads, allowed = CASES["clonal30x"](24)
-    chains, done, caps = host_kernel(index, reads, allowed, cap=100)
+    chains, caps = host_kernel(index, reads, allowed, cap=100)
     ref = host_chains(index, reads, allowed)
     hits = sum(index.lookup(minimizers(r, index.k, index.w)[1])[0].size for r in reads)
-    assert caps == [100, hits] and done == len(reads)
+    assert caps == [100, hits]
     assert_same_chains(chains, ref)
 
 
@@ -305,6 +305,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 # ------------------------------------------------------------------ on the card
 
 
+def _launches() -> int:
+    return _build.kernel_launch_counts()["chain_seeds"]
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -316,10 +320,9 @@ def cuda():
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_card_route_equals_host_route(cuda, case):
     index, reads, allowed = CASES[case](None)
-    before = CS.chain_seeds_cuda.launches
-    chains, done = CS.find_chains_cuda(index, reads, allowed_cids=allowed, device=cuda)
-    assert done == len(reads)
-    assert CS.chain_seeds_cuda.launches == before + (1 if reads else 0)
+    before = _launches()
+    chains = CS.find_chains_cuda(index, reads, allowed_cids=allowed, device=cuda)
+    assert _launches() == before + (1 if reads else 0)
     assert_same_chains(chains, host_chains(index, reads, allowed))
     if reads:  # the index went to the card once, and a second batch reuses it
         cached = index._on_device[str(torch.device("cuda", torch.cuda.current_device()))]
@@ -331,9 +334,9 @@ def test_card_route_equals_host_route(cuda, case):
 def test_card_route_relaunches_when_the_scratch_is_short(cuda, monkeypatch):
     index, reads, allowed = CASES["clonal30x"](40)
     monkeypatch.setattr(CS, "hits_estimate", lambda index, reads: 100)
-    before = CS.chain_seeds_cuda.launches
-    chains, done = CS.find_chains_cuda(index, reads, device=cuda)
-    assert CS.chain_seeds_cuda.launches == before + 2 and done == len(reads)
+    before = _launches()
+    chains = CS.find_chains_cuda(index, reads, device=cuda)
+    assert _launches() == before + 2
     assert_same_chains(chains, host_chains(index, reads, allowed))
 
 
@@ -345,13 +348,13 @@ def test_map_reads_on_the_card_chains_every_read_there(cuda):
     contigs, reads = _job("clonal30x")
     contigs = {n: decode(c) for n, c in contigs.items()}
     seqs = [decode(r) for r in reads[:200]]
-    before = CS.chain_seeds_cuda.launches
+    before, first = _launches(), next(tracing._ids)
     with tracing.span("mapping") as sp:
         card = map_reads(contigs, seqs, device=cuda)
-    chain = sp.children.get("chain")
+    seeding = [s for s in tracing.spans() if s.id > first and s.name == "chain" and s.counts["reads"]]
     host = map_reads(contigs, seqs, device="cpu")
-    assert CS.chain_seeds_cuda.launches > before
-    assert chain is not None and chain.counts["device_reads"] == chain.counts["reads"]
+    assert "chain" in sp.children and seeding
+    assert _launches() == before + len(seeding)  # one launch a seeding map_reads call
     key = lambda a: (a.read_idx, a.contig, a.t_start, a.q_start)  # noqa: E731
     assert [(a.read_idx, a.contig, a.strand, a.q_start, a.q_end, a.t_start, a.t_end, a.nm, a.cigar)
             for a in sorted(card, key=key)] == \

@@ -26,6 +26,7 @@ import torch
 from chip_smoke import MODE_PATTERNS, edge_jobs, mode_pattern, random_jobs, window_blocks
 from hairsplitter_tpu_torch.utils.sim import make_haplotypes, simulate_reads
 from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
+from hairsplitter_tpu_torch.ops import _build
 from hairsplitter_tpu_torch.ops import align_dp_cuda as ad
 from hairsplitter_tpu_torch.ops import align_myers_cuda as am
 from hairsplitter_tpu_torch.ops.align import BandSpec
@@ -34,6 +35,10 @@ from hairsplitter_tpu_torch.ops.align_device import align_traceback_rows, banded
 pytestmark = pytest.mark.cuda
 
 SPEC = BandSpec(chunk=256, band=128)
+
+
+def _launches(kernel: str) -> int:
+    return _build.kernel_launch_counts()[kernel]
 
 
 @pytest.fixture
@@ -53,10 +58,10 @@ def _jobs(seed: int, n: int):
 def test_kernel_equals_plain_version(cuda, n):
     q, _, t, _ = _jobs(n, n)
     qd, td = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
-    before = am.myers_rows.launches
+    before = _launches("myers_rows")
     got = am.myers_rows(qd, td, SPEC, emit_tb=True)
     ref = am.myers_rows_torch(qd, td, SPEC, emit_tb=True)
-    assert am.myers_rows.launches == before + 1
+    assert _launches("myers_rows") == before + 1
     for g, r in zip(got, ref):
         assert g.shape == (n, SPEC.chunk, 4)
         assert torch.equal(g, r)
@@ -73,11 +78,11 @@ def test_fused_kernel_equals_plain_composition(cuda, jobs, pattern):
     q, ql, t, tl = edge_jobs(SPEC) if jobs == "edge" else _jobs(jobs, jobs)
     n = q.shape[0]
     arrays = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl, mode_pattern(pattern, n))]
-    before, rows_before = am.myers_fused_cuda.launches, am.myers_rows.launches
+    before, rows_before = _launches("myers_fused"), _launches("myers_rows")
     got = align_traceback_rows(*arrays, SPEC, "myers")
     torch.cuda.synchronize()
-    assert am.myers_fused_cuda.launches == before + 1
-    assert am.myers_rows.launches == rows_before  # the check-mode kernel is not on this path
+    assert _launches("myers_fused") == before + 1
+    assert _launches("myers_rows") == rows_before  # the check-mode kernel is not on this path
     ref = myers_fused_plain(*arrays, SPEC)
     assert got.dtype == torch.uint8 and got.shape == (n, 16 + SPEC.chunk)
     assert torch.equal(got, ref), (got != ref).any(dim=1).nonzero()[:8, 0].tolist()
@@ -98,10 +103,10 @@ def test_fused_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 @pytest.mark.parametrize("emit_enc", [False, True], ids=["bp", "enc"])
 def test_k2_kernel_equals_plain_version(cuda, n, emit_enc):
     arrays = [torch.from_numpy(x).to(cuda) for x in _jobs(n, n)]
-    before = ad.banded_align_batch_dp.launches
+    before = _launches("banded_dp")
     got = ad.banded_align_batch_dp(*arrays, SPEC, emit_enc=emit_enc)
     torch.cuda.synchronize()
-    assert ad.banded_align_batch_dp.launches == before + 1
+    assert _launches("banded_dp") == before + 1
     ref = ad.banded_align_batch_torch(*arrays, SPEC, emit_enc=emit_enc)
     assert got.keys() == ref.keys()
     for key in ref:
@@ -117,11 +122,11 @@ def test_k2_fused_kernel_equals_plain_composition(cuda, jobs, pattern):
     q, ql, t, tl = edge_jobs(SPEC) if jobs == "edge" else _jobs(jobs, jobs)
     n = q.shape[0]
     arrays = [torch.from_numpy(x).to(cuda) for x in (q, ql, t, tl, mode_pattern(pattern, n))]
-    before, check_before = ad.banded_fused_cuda.launches, ad.banded_align_batch_dp.launches
+    before, check_before = _launches("banded_fused"), _launches("banded_dp")
     got = align_traceback_rows(*arrays, SPEC, "pallas")
     torch.cuda.synchronize()
-    assert ad.banded_fused_cuda.launches == before + 1
-    assert ad.banded_align_batch_dp.launches == check_before
+    assert _launches("banded_fused") == before + 1
+    assert _launches("banded_dp") == check_before
     ref = banded_fused_plain(*arrays, SPEC)
     assert got.dtype == torch.uint8 and got.shape == (n, 16 + SPEC.chunk)
     assert torch.equal(got, ref), (got != ref).any(dim=1).nonzero()[:8, 0].tolist()
@@ -139,7 +144,7 @@ def test_k2_fused_kernel_at_other_chunks(cuda, chunk):
 def test_k2_fused_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, ql, t, tl = (torch.from_numpy(x).to(cuda) for x in _jobs(5, 64))
     modes = torch.zeros(64, dtype=torch.int32, device=cuda)
-    before = ad.banded_fused_cuda.launches
+    before = _launches("banded_fused")
     with pytest.raises(TypeError):
         ad.banded_fused_cuda(q, ql.to(torch.int64), t, tl, modes, SPEC)
     with pytest.raises(ValueError, match="contiguous"):
@@ -154,10 +159,10 @@ def test_k2_fused_kernel_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError, match="chunk 8192"):
         ad.banded_fused_cuda(torch.zeros((4, 8192), dtype=torch.int8, device=cuda), ql[:4],
                              torch.zeros((4, big.t_width), dtype=torch.int8, device=cuda), tl[:4], modes[:4], big)
-    assert ad.banded_fused_cuda.launches == before
+    assert _launches("banded_fused") == before
 
 
-FUSED_WRAPPER = {"myers": am.myers_fused_cuda, "pallas": ad.banded_fused_cuda}
+FUSED_KERNEL = {"myers": "myers_fused", "pallas": "banded_fused"}
 
 
 def test_empty_batch_launches_nothing_and_counts_nothing(cuda):
@@ -165,13 +170,12 @@ def test_empty_batch_launches_nothing_and_counts_nothing(cuda):
     launch, an empty result of the right shape and no count."""
     q, ql, t, tl = (torch.from_numpy(x[:0]).to(cuda) for x in _jobs(5, 16))
     modes = torch.zeros(0, dtype=torch.int32, device=cuda)
-    wrappers = (am.myers_rows, am.myers_fused_cuda, ad.banded_align_batch_dp, ad.banded_fused_cuda)
-    before = [w.launches for w in wrappers]
+    before = _build.kernel_launch_counts()
     assert [x.shape for x in am.myers_rows(q, t, SPEC, emit_tb=True)] == [(0, SPEC.chunk, 4)] * 4
     assert am.myers_fused_cuda(q, ql, t, tl, modes, SPEC).shape == (0, 16 + SPEC.chunk)
     assert ad.banded_align_batch_dp(q, ql, t, tl, SPEC, emit_enc=True)["enc"].shape == (0, SPEC.chunk, 128)
     assert ad.banded_fused_cuda(q, ql, t, tl, modes, SPEC).shape == (0, 16 + SPEC.chunk)
-    assert [w.launches for w in wrappers] == before
+    assert _build.kernel_launch_counts() == before
 
 
 @pytest.mark.parametrize("kernel", ["myers", "pallas"])
@@ -180,9 +184,9 @@ def test_fused_call_on_card_equals_cpu(cuda, kernel):
     modes = (np.arange(2048) % 2).astype(np.int32)
     host = [torch.from_numpy(x) for x in (*arrays, modes)]
     cpu = align_traceback_rows(*host, SPEC, kernel)
-    before = FUSED_WRAPPER[kernel].launches
+    before = _launches(FUSED_KERNEL[kernel])
     gpu = align_traceback_rows(*(x.to(cuda) for x in host), SPEC, kernel)
-    assert FUSED_WRAPPER[kernel].launches == before + 1  # the call went through the fused kernel
+    assert _launches(FUSED_KERNEL[kernel]) == before + 1  # the call went through the fused kernel
     assert torch.equal(gpu.cpu(), cpu)
 
 
@@ -194,12 +198,12 @@ def test_map_reads_on_card_equals_cpu(cuda, cfg):
                            sub_rate=0.06, ins_rate=0.02, del_rate=0.02).seqs
     key = lambda a: (a.read_idx, a.strand, a.q_start, a.q_end, a.t_start, a.t_end,  # noqa: E731
                      a.cigar_ops.tolist(), a.cigar_lens.tolist(), a.nm)
-    wrapper = am.myers_fused_cuda if cfg.use_myers else ad.banded_fused_cuda
+    fused = "myers_fused" if cfg.use_myers else "banded_fused"
     cpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device="cpu")]
-    before, check_before = wrapper.launches, ad.banded_align_batch_dp.launches
+    before, check_before = _launches(fused), _launches("banded_dp")
     gpu = [key(a) for a in map_reads({"c": haps[0]}, reads, cfg, device=cuda)]
-    assert wrapper.launches > before  # mapping on the card went through the fused kernel
-    assert ad.banded_align_batch_dp.launches == check_before
+    assert _launches(fused) > before  # mapping on the card went through the fused kernel
+    assert _launches("banded_dp") == check_before
     assert len(cpu) > 0 and gpu == cpu
 
 
@@ -247,9 +251,9 @@ def test_correct_assembly_on_the_card_equals_the_cpu(cuda):
         return list(g.segments.items()), links, dict(g.depths), dataclasses.asdict(rep)
 
     ref = run("cpu")
-    before = am.myers_fused_cuda.launches
+    before = _launches("myers_fused")
     got = run(cuda)
-    assert am.myers_fused_cuda.launches - before >= 3  # before, after one pass, after
+    assert _launches("myers_fused") - before >= 3  # before, after one pass, after
     assert ref[3]["cuts"] and ref[3]["new_links"]
     assert got == ref
 
@@ -279,9 +283,9 @@ def test_realistic_training_pair_on_the_card_equals_the_cpu(cuda, hp_bias):
     from hairsplitter_tpu_torch.models import polisher as P
 
     ref = P._realistic_training_pair(np.random.default_rng(2), L=1024, hp_bias=hp_bias, device="cpu")
-    before = am.myers_fused_cuda.launches
+    before = _launches("myers_fused")
     got = P._realistic_training_pair(np.random.default_rng(2), L=1024, hp_bias=hp_bias, device=cuda)
-    assert am.myers_fused_cuda.launches > before
+    assert _launches("myers_fused") > before
     for a, b in zip(got, ref):
         assert a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
 
@@ -348,10 +352,10 @@ def test_window_stats_kernel_equals_plain_and_numpy_twins(cuda, batch):
     n, nb = int(offsets[-1]), len(rows)
     on_dev = staging.to(cuda)
     flat, code = on_dev[:n], on_dev[n:]
-    before = V.window_stats_cuda.launches
+    before = _launches("window_stats")
     got = [x.cpu() for x in V.unpack_window_stats(
         V.window_stats_packed(flat, torch.from_numpy(offsets).to(cuda), code), nb, P)]
-    assert V.window_stats_cuda.launches == before + 1
+    assert _launches("window_stats") == before + 1
     for b, (tri, c) in enumerate(zip(tris, codes)):
         plain = [x.cpu() for x in V.window_stats_plain(flat[offsets[b] : offsets[b + 1]][None], code[b : b + 1])]
         for g, r in zip(got, plain):
@@ -366,9 +370,9 @@ def test_window_stats_kernel_equals_plain_and_numpy_twins(cuda, batch):
     same = [b for b in range(nb) if rows[b] == rows[2]]
     tri_d = torch.from_numpy(np.stack([tris[b] for b in same])).to(cuda)
     code_d = torch.from_numpy(np.stack([codes[b] for b in same])).to(cuda)
-    before = V.window_stats_cuda.launches
+    before = _launches("window_stats")
     dense = V.window_stats_batch(tri_d, code_d)
-    assert V.window_stats_cuda.launches == before + 1
+    assert _launches("window_stats") == before + 1
     for g, r in zip(dense, V.window_stats_plain(tri_d, code_d)):
         assert torch.equal(g, r)
 
@@ -394,32 +398,29 @@ def _two_contig_job(device):
 
 
 def test_finish_preps_on_card_equals_cpu(cuda, tmp_path):
-    """Every block of both contigs in one device pass and one launch on the
-    card, none through the numpy twins; every field of every ContigPrep and
-    the stage's COL file equal to the CPU route's."""
+    """Every block of both contigs in one device pass, on the card with one
+    launch and on the CPU with none; every field of every ContigPrep and the
+    stage's COL file equal to the CPU route's."""
     from hairsplitter_tpu_torch.io.col_gro import write_col
-    from hairsplitter_tpu_torch.ops import variants as V
     from hairsplitter_tpu_torch.pipeline import call_variants as cv
     from hairsplitter_tpu_torch.utils import tracing
 
     pending, per_contig, cfg = _two_contig_job(cuda)
 
     def run(device):
-        first = next(tracing._ids)
+        first, before = next(tracing._ids), _build.kernel_launch_counts()
         with tracing.span("stats") as sp:
             preps = cv.finish_preps(pending(), cfg, device=device)
-        under = [(s.name, s.counts["blocks"]) for s in tracing.spans() if s.id > first and s.parent == sp.id]
-        return preps, sp.counts, under
+        after = _build.kernel_launch_counts()
+        under = [(s.name, s.counts) for s in tracing.spans() if s.id > first and s.parent == sp.id]
+        return preps, {k: v - before[k] for k, v in after.items() if v != before[k]}, under
 
-    ref, ref_counts, _ = run("cpu")
-    before = V.window_stats_cuda.launches
-    got, counts, under = run(cuda)
+    ref, ref_launches, ref_under = run("cpu")
+    got, launches, under = run(cuda)
     n_blocks = sum(len(p.win_stats) for p in ref.values())
-    assert V.window_stats_cuda.launches == before + 1
-    assert counts == {"device_blocks": n_blocks, "host_blocks": 0}
-    assert ref_counts["host_blocks"] == n_blocks  # 30x blocks sit under the gate off CUDA
-    assert under == [("device_pass", n_blocks), ("host_pass", 0)]
-    assert 4 <= n_blocks and max(blk.tri.shape[0] for p in got.values() for blk, *_ in p.win_stats) < 256
+    assert launches == {"window_stats": 1} and ref_launches == {}
+    assert under == ref_under == [("device_pass", {"blocks": n_blocks}), ("host_pass", {})]
+    assert n_blocks >= 4
     for name in ref:
         g, r = got[name], ref[name]
         assert (g.length, g.n_reads, g.mismatches, g.cells) == (r.length, r.n_reads, r.mismatches, r.cells)

@@ -275,7 +275,7 @@ def test_each_job_logs_its_own_kernel_launches(tmp_path, monkeypatch):
     """A long-lived process logs the launches of the job just run, not the
     sum over every job it ran."""
     totals = iter([{"myers_fused": 5, "myers_rows": 0}, {"myers_fused": 12, "myers_rows": 0}])
-    monkeypatch.setattr(distributed, "kernel_launch_counts", lambda: next(totals))
+    monkeypatch.setattr(distributed._build, "kernel_launch_counts", lambda: next(totals))
     distributed._log_launches(str(tmp_path), "hairsplitter.log", {"myers_fused": 4, "myers_rows": 0})
     distributed._log_launches(str(tmp_path), "hairsplitter.log", {"myers_fused": 5, "myers_rows": 0})
     logged = [l.split("kernel launches: ")[1] for l in (tmp_path / "hairsplitter.log").read_text().splitlines()]
@@ -312,13 +312,16 @@ def test_contig_threads_run_on_the_callers_card(monkeypatch):
 
 
 def test_every_kernel_launch_enters_its_tensors_card():
-    """Each ctypes launch takes the current stream inside
-    `torch.cuda.device(<tensor>.device)`, so a thread set to another card
-    still launches on the card of its tensors, on that card's stream."""
+    """Every launch goes through `ops/_build.py:launch`, which takes the
+    current stream inside `torch.cuda.device(device)`, and each wrapper
+    passes the device of its tensors: a thread set to another card still
+    launches on the card of its tensors, on that card's stream."""
     import ast
 
+    from hairsplitter_tpu_torch.ops import _build
+
     root = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "hairsplitter_tpu_torch", "ops")
-    found = 0
+    found, launched = 0, set()
     for name in sorted(os.listdir(root)):
         if not name.endswith(".py"):
             continue
@@ -333,7 +336,12 @@ def test_every_kernel_launch_enters_its_tensors_card():
                     and not node.args:
                 found += 1
                 assert id(node) in guarded, f"{name}:{node.lineno}: current_stream() outside torch.cuda.device"
-    assert found >= 5
+            if isinstance(node, ast.Call) and ast.unparse(node.func) == "launch":
+                kernel, device = node.args[:2]
+                launched.add(kernel.value)
+                assert ast.unparse(device).endswith(".device"), f"{name}:{node.lineno}: launch on {ast.unparse(device)}"
+    assert found == 1  # in `launch` alone
+    assert launched == set(_build.kernel_launch_counts())
 
 
 def test_worker_group_refuses_more_cards_than_the_host_has():

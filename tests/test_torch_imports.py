@@ -74,6 +74,74 @@ def test_the_import_walker_sees_nested_and_dotted_imports(tmp_path):
     assert roots == {"os", "hairsplitter_tpu", "jax", "flax", "hairsplitter_tpu_torch"}
 
 
+def _device_choices(tree: ast.AST) -> list[int]:
+    """Lines that compare a `.type` with "cuda" or touch `torch.cuda`."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Compare):
+            sides = [node.left, *node.comparators]
+            if any(isinstance(x, ast.Attribute) and x.attr == "type" for x in sides) and \
+                    any(isinstance(x, ast.Constant) and x.value == "cuda" for x in sides):
+                found.append(node.lineno)
+        elif isinstance(node, ast.Attribute) and node.attr == "cuda" and \
+                isinstance(node.value, ast.Name) and node.value.id == "torch":
+            found.append(node.lineno)
+    return found
+
+
+def _ops_imports(tree: ast.AST) -> list[int]:
+    """Lines that import the port's `ops` package or a module of it, from a
+    module one level below the package root."""
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            names = {a.name for a in node.names}
+            mod = {2: "hairsplitter_tpu_torch", 0: ""}.get(node.level)
+            if mod is None:
+                continue
+            mod = ".".join(x for x in (mod, node.module) if x)
+            if mod == "hairsplitter_tpu_torch.ops" or mod.startswith("hairsplitter_tpu_torch.ops.") or \
+                    (mod == "hairsplitter_tpu_torch" and "ops" in names):
+                found.append(node.lineno)
+        elif isinstance(node, ast.Import):
+            if any(a.name.startswith("hairsplitter_tpu_torch.ops") for a in node.names):
+                found.append(node.lineno)
+    return found
+
+
+def test_device_choice_and_kernel_plumbing_live_in_ops():
+    """`ops/` alone chooses a route by device: no module of `core/`,
+    `utils/` or `pipeline/` but `orchestrate.py` (which checks that the
+    asked device exists and enters the caller's card) compares a device's
+    `.type` with "cuda" or calls `torch.cuda`; and `utils/`, the bottom
+    layer, imports nothing of `ops/`."""
+    sample = ast.parse(
+        "import torch\n"
+        "from ..ops import _build\n"
+        "from .. import ops\n"
+        "from ..ops.variants import window_stats_blocks\n"
+        "import hairsplitter_tpu_torch.ops.chain_seeds\n"
+        "def f(device):\n"
+        "    if torch.device(device).type == 'cuda':\n"
+        "        return torch.cuda.current_stream()\n"
+        "    return 'cuda' != device.type\n"
+    )
+    assert sorted(_device_choices(sample)) == [7, 8, 9]
+    assert sorted(_ops_imports(sample)) == [2, 3, 4, 5]
+    bad = {}
+    for layer in ("core", "utils", "pipeline"):
+        for path in sorted(glob.glob(os.path.join(REPO, "hairsplitter_tpu_torch", layer, "*.py"))):
+            rel = os.path.relpath(path, REPO)
+            if rel == "hairsplitter_tpu_torch/pipeline/orchestrate.py":
+                continue
+            with open(path) as f:
+                tree = ast.parse(f.read(), filename=path)
+            lines = _device_choices(tree) + (_ops_imports(tree) if layer == "utils" else [])
+            if lines:
+                bad[rel] = sorted(lines)
+    assert not bad, f"device choices or ops imports outside ops/: {bad}"
+
+
 _BLOCKER = """
 import runpy
 import sys

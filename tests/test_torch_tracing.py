@@ -130,19 +130,41 @@ def test_the_ring_is_bounded_and_counts_what_it_drops(monkeypatch):
 
 
 def test_kernel_launch_counts_reads_the_four_kernels():
-    from hairsplitter_tpu_torch.ops import align_dp_cuda, align_myers_cuda, chain_seeds, variants
+    from hairsplitter_tpu_torch.ops import _build
     from hairsplitter_tpu_torch.parallel import distributed
 
-    counts = tracing.kernel_launch_counts()
-    assert distributed.kernel_launch_counts is tracing.kernel_launch_counts
-    assert counts == {
-        "myers_fused": align_myers_cuda.myers_fused_cuda.launches,
-        "myers_rows": align_myers_cuda.myers_rows.launches,
-        "banded_fused": align_dp_cuda.banded_fused_cuda.launches,
-        "banded_dp": align_dp_cuda.banded_align_batch_dp.launches,
-        "window_stats": variants.window_stats_cuda.launches,
-        "chain_seeds": chain_seeds.chain_seeds_cuda.launches,
-    }
+    counts = _build.kernel_launch_counts()
+    assert distributed._build is _build
+    assert list(counts) == ["myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds"]
+    assert all(isinstance(v, int) and v >= 0 for v in counts.values())
+    counts["myers_fused"] += 1  # the caller gets a copy
+    assert _build.kernel_launch_counts()["myers_fused"] == counts["myers_fused"] - 1
+
+
+def test_launch_counts_each_launch_and_raises_on_a_cuda_error(monkeypatch):
+    """`_build.launch` calls `hs_<kernel>` with the current stream last and
+    counts the launch; a nonzero return raises and is not counted. The
+    library, the device and the stream are stand-ins here."""
+    import contextlib
+    import types
+
+    import torch
+
+    from hairsplitter_tpu_torch.ops import _build
+
+    calls, rc = [], [0]
+    lib = types.SimpleNamespace(hs_window_stats=lambda *args: calls.append(args) or rc[0])
+    monkeypatch.setattr(_build, "load_kernels", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=77))
+    before = _build.kernel_launch_counts()
+    _build.launch("window_stats", "cuda:0", 1, None, 2.5)
+    assert calls == [(1, None, 2.5, 77)]
+    assert _build.kernel_launch_counts() == {**before, "window_stats": before["window_stats"] + 1}
+    rc[0] = 700
+    with pytest.raises(RuntimeError, match="hs_window_stats launch failed with CUDA error 700"):
+        _build.launch("window_stats", "cuda:0")
+    assert _build.kernel_launch_counts()["window_stats"] == before["window_stats"] + 1
 
 
 @pytest.fixture(scope="module")
@@ -209,15 +231,16 @@ def test_stage_stats_entries(pipeline_run):
 
 
 def test_stats_entry_counts_the_window_blocks_by_route(pipeline_run):
-    """`call_variants.stats` counts the blocks of each route: on the CPU the
-    fixture's blocks (~40 rows, bucket 64) all go through the numpy twins."""
+    """`call_variants.stats` holds the seconds and the one call of the
+    window-stats route; its device_pass span takes every block of the
+    fixture's one 20 kb contig."""
     from hairsplitter_tpu_torch.pipeline.pileup import WINDOW
 
-    stats, _, _ = pipeline_run
+    stats, spans, _ = pipeline_run
     entry = stats["call_variants.stats"]
-    assert {"device_blocks", "host_blocks"} <= set(entry)
-    assert entry["device_blocks"] + entry["host_blocks"] == -(-20_000 // WINDOW)  # the fixture's one 20 kb contig
-    assert entry["device_blocks"] == 0
+    assert set(entry) == {"seconds", "calls"}
+    assert entry["seconds"] > 0 and entry["calls"] == 1
+    assert [s.counts for s in spans if s.name == "device_pass"] == [{"blocks": -(-20_000 // WINDOW)}]
 
 
 def test_map_reads_spans_nest_under_their_caller(pipeline_run):

@@ -36,7 +36,7 @@ def test_col_and_contig_variants_equal(mix, monkeypatch, tmp_path):
     haps, seqs, alns = mix
     monkeypatch.setattr(jax_cv, "_accel_available", lambda: True)
     corr_calls = spy_calls(monkeypatch, port_cv, "pairwise_column_correlation_packed")
-    stats_calls = spy_calls(monkeypatch, port_cv, "window_stats_batch")
+    stats_calls = spy_calls(monkeypatch, port_cv, "window_stats_blocks")
     ref = call_stage3(jax_cv, haps[0], alns, seqs)
     got = call_stage3(port_cv, haps[0], alns, seqs, device="cpu")
     assert corr_calls and stats_calls, "the device branches did not run"

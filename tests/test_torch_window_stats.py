@@ -1,6 +1,6 @@
 """Stage 3's window statistics as a ragged batch (`ops/variants.py`:
 `pack_window_blocks`, `window_stats_packed`, `window_stats_blocks`) and the
-routes of `pipeline/call_variants.py:finish_preps`.
+one route of `pipeline/call_variants.py:finish_preps` on every device.
 
 The CUDA kernel itself cannot run here. Its body (`csrc/window_stats.cu`:
 histogram, top-3, coverage and the per-column error counts) compiles for
@@ -148,19 +148,18 @@ def test_wrappers_reject_what_they_do_not_take():
     with pytest.raises(ValueError):
         V.window_stats_packed(flat[:, :32], offs, code)
     out = V.unpack_window_stats(torch.empty(V.window_stats_bytes(2, 64), dtype=torch.uint8), 2, 64)
-    before = V.window_stats_cuda.launches
+    before = _build.kernel_launch_counts()["window_stats"]
     with pytest.raises(ValueError):
         V.window_stats_cuda(flat, offs, code, out)
-    assert V.window_stats_cuda.launches == before
+    assert _build.kernel_launch_counts()["window_stats"] == before
 
 
-# ---------------------------------------------------------------- finish_preps' routes
+# ---------------------------------------------------------------- finish_preps' route
 
 
 def _pending(rows_per_contig, P=512, seed=9):
-    """PendingPreps of contigs made of `window_blocks`, with their buckets."""
+    """PendingPreps of contigs made of `window_blocks`."""
     from hairsplitter_tpu_torch.pipeline.pileup import WindowBlock
-    from hairsplitter_tpu_torch.utils.shapes import pow2_bucket
 
     rng = np.random.default_rng(seed)
     pending = []
@@ -168,7 +167,7 @@ def _pending(rows_per_contig, P=512, seed=9):
         tris, codes = window_blocks(rng, rows, P)
         blocks = [WindowBlock(f"c{ci}", b * P, P, np.arange(t.shape[0]), t) for b, t in enumerate(tris)]
         prep = cv.ContigPrep(contig=f"c{ci}", length=P * len(rows), n_reads=max(rows), mismatches=0, cells=0)
-        pending.append(cv.PendingPrep(prep, blocks, codes, [pow2_bucket(r, minimum=32) for r in rows]))
+        pending.append(cv.PendingPrep(prep, blocks, codes))
     return pending
 
 
@@ -176,7 +175,7 @@ def _run_finish(rows_per_contig, device):
     first = next(tracing._ids)
     with tracing.span("stats") as sp:
         preps = cv.finish_preps(_pending(rows_per_contig), cv.VariantCallConfig(window=512), device=device)
-    under = [s for s in tracing.spans() if s.id > first and s.parent == sp.id]
+    under = [(s.name, s.counts) for s in tracing.spans() if s.id > first and s.parent == sp.id]
     return preps, sp.counts, under
 
 
@@ -188,25 +187,30 @@ def _fields(preps):
     }
 
 
-ROWS = ((60, 64, 300), (257, 31))  # buckets 64, 64, 512 and 512, 32: both sides of the gate
+ROWS = ((60, 64, 300), (257, 31))  # two contigs of ragged blocks, 31 to 300 rows
 
 
-def test_cpu_route_keeps_the_gate_and_counts_its_blocks(monkeypatch):
-    """Off CUDA: blocks whose bucket reaches device_min_rows (256) run in a
-    device pass, the rest through the numpy twins; the enclosing span counts
-    both, and never the CUDA route."""
-    def refuse(*a, **k):
-        raise AssertionError("the CUDA route ran on the CPU")
+def test_cpu_route_sends_every_block_in_one_pass(monkeypatch):
+    """On the CPU, as on CUDA, every block of every contig goes to one
+    `window_stats_blocks` call in one device_pass span; every field of
+    every ContigPrep equals the numpy twins', block by block."""
+    calls = []
+    inner = cv.window_stats_blocks
 
-    monkeypatch.setattr(cv, "window_stats_blocks", refuse)
+    def spy(tris, codes, device):
+        calls.append((len(tris), torch.device(device).type))
+        return inner(tris, codes, device)
+
+    monkeypatch.setattr(cv, "window_stats_blocks", spy)
     preps, counts, under = _run_finish(ROWS, "cpu")
-    assert counts == {"device_blocks": 2, "host_blocks": 3}
-    assert [(s.name, s.counts["blocks"]) for s in under] == [("device_pass", 2), ("host_pass", 3)]
+    assert calls == [(5, "cpu")]
+    assert counts == {} and under == [("device_pass", {"blocks": 5}), ("host_pass", {})]
     for pp in _pending(ROWS):
         p = preps[pp.prep.contig]
-        for (blk, tc, tn, cov), tri, code in zip(p.win_stats, [b.tri for b in pp.blocks], pp.codes_ws):
+        for (blk, tc, tn, cov), tri, code in zip(p.win_stats, [b.tri for b in pp.blocks], pp.codes_ws, strict=True):
             ref = _twins(tri, code)
             for g, r in zip((tc, tn, cov), ref):
+                assert g.dtype == np.int32
                 np.testing.assert_array_equal(g, r)
         assert (p.mismatches, p.cells) == tuple(
             map(sum, zip(*[_twins(b.tri, c)[3:] for b, c in zip(pp.blocks, pp.codes_ws)])))
@@ -214,9 +218,9 @@ def test_cpu_route_keeps_the_gate_and_counts_its_blocks(monkeypatch):
 
 def test_cuda_route_sends_every_block_in_one_pass(monkeypatch):
     """On CUDA every block of every contig goes to `window_stats_blocks` in
-    one call and one device_pass span, whatever its bucket: here the call is
-    made on the CPU's plain composition, so the route's packing and
-    collection are held against the CPU route, field for field."""
+    one call and one device_pass span: here the call is made on the CPU's
+    plain composition, so the route's packing and collection are held
+    against the CPU route, field for field."""
     calls = []
 
     def on_cpu(tris, codes, device):
@@ -225,8 +229,18 @@ def test_cuda_route_sends_every_block_in_one_pass(monkeypatch):
 
     ref, _, _ = _run_finish(ROWS, "cpu")
     monkeypatch.setattr(cv, "window_stats_blocks", on_cpu)
-    got, counts, under = _run_finish(ROWS, "cuda")
+    got, _, under = _run_finish(ROWS, "cuda")
     assert calls == [(5, "cuda")]
-    assert counts == {"device_blocks": 5, "host_blocks": 0}
-    assert [(s.name, s.counts["blocks"]) for s in under] == [("device_pass", 5), ("host_pass", 0)]
+    assert under == [("device_pass", {"blocks": 5}), ("host_pass", {})]
     assert _fields(got) == _fields(ref)
+
+
+def test_finish_preps_with_no_contig_passes_nothing(monkeypatch):
+    """A process that owns no contig (a shard of a job over several
+    devices can be empty) sends nothing to the device."""
+    def refuse(*a, **k):
+        raise AssertionError("window_stats_blocks called with no block")
+
+    monkeypatch.setattr(cv, "window_stats_blocks", refuse)
+    preps, _, under = _run_finish((), "cpu")
+    assert preps == {} and under == [("host_pass", {})]
