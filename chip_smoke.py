@@ -39,12 +39,18 @@ Phases (each prints its result; any failure raises and exits non-zero):
      clonal30x pool job must give the host route's chains
      (`find_chains_batch`) read by read, one launch a call; the kernel is
      timed alone with CUDA events beside its bound, the whole card route
-     (packing, copies, unpacking) and the host route on the host clock;
+     (packing, copies, unpacking) and the host route on the host clock. The
+     CIGAR walk on the card (`ops/pileup_cells.py`, `csrc/pileup_cells.cu`)
+     on that job, mapped on the card, must give the host copies' cells,
+     insertions, window blocks and stats, one launch of the walk and one of
+     the window stats a call; the walk is timed alone with CUDA events
+     beside its bound, the card route and the host copies on the host clock;
   4. main path, K1: builds the 300 kb x 3-strain, 30x, 10%-error dataset
      (seed 7) and runs the port's CLI on cuda; the fused kernel's launch
      counter must be > 0 and the check-mode kernel's must stay 0, the
-     window-stats kernel must launch once for the job and the chain kernel
-     once for each `map_reads` call that seeds (every count here is a
+     window-stats kernel and the CIGAR walk must launch once for the job
+     (stage 5 walks nothing: its `cells` span reads `walked` 0) and the
+     chain kernel once for each `map_reads` call that seeds (every count here is a
      difference of `kernel_launch_counts()` over the run), the final GFA
      must exist and every strain's recovery must be >= 0.95;
   5. main path, K2: the same dataset through `run_pipeline` with
@@ -666,6 +672,78 @@ def chain_phase(dev) -> dict:
     return dict(ms=k_ms, bound=bound, route_ms=route_ms, host_ms=host_ms, reads=len(reads), hits=hits)
 
 
+def pileup_cells_phase(dev) -> dict:
+    """The CIGAR walk on the card (`ops/pileup_cells.py`, `csrc/pileup_cells.cu`)
+    on one job of the clonal30x cell's pool, mapped on the card: the card
+    route's store (every alignment's cells and insertions, every window block
+    and its stats) equal to the host copies' (`alignment_cells_full`,
+    `build_window_blocks`, `window_stats_blocks`), one launch of the walk and
+    one of the window stats a call; the walk timed alone with CUDA events
+    beside its bound (its inputs read once and its outputs written once over
+    3.35 TB/s), the whole card route (pack, copies, both kernels, unpack) and
+    the host copies on the host clock. Returns the numbers."""
+    import torch
+
+    from benchmark import manifest
+    from benchmark.traffic import generate
+    from hairsplitter_tpu_torch.constants import decode_seq
+    from hairsplitter_tpu_torch.core.mapping import MapConfig, map_reads
+    from hairsplitter_tpu_torch.ops import pileup_cells as PC
+    from hairsplitter_tpu_torch.ops._build import launch
+    from hairsplitter_tpu_torch.pipeline import call_variants as cv
+
+    cell = manifest.load_cell("strains-ont.clonal30x")
+    job = generate.make_job(cell.params, [int(cell.params.get("content_seed", 0)), 0, 0])
+    contigs = {c.name: decode_seq(c.assembly) for c in job.contigs}
+    read_seqs = dict(enumerate(decode_seq(s) for s in job.reads.seqs))
+    alns = map_reads(contigs, [read_seqs[i] for i in range(len(read_seqs))], MapConfig(), device=dev)
+    per_contig = {c: sorted((a for a in alns if a.contig == c), key=lambda a: (a.read_idx, a.t_start, a.q_start))
+                  for c in contigs}
+    vcfg = cv.VariantCallConfig()
+    pending = [cv.prepare_contig_host(c, seq, per_contig[c], read_seqs, vcfg) for c, seq in contigs.items()]
+    walks = [pp.walk for pp in pending]
+    codes_ws = [c for pp in pending for c in pp.codes_ws]
+    t0 = time.perf_counter()
+    ref = PC._walk_host(walks, read_seqs, "cpu", codes_ws)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    before = kernel_launch_counts()
+    got = PC.walk_alignments(walks, read_seqs, dev, codes_ws=codes_ws)
+    during = launches_since(before)
+    assert (during["pileup_cells"], during["window_stats"]) == (1, 1), f"one launch of each kernel a call: {during}"
+    for name in ("t_start", "n_cells", "tri_off", "ins_off", "tri", "central", "ins_t", "ins_c"):
+        g, r = getattr(got, name), getattr(ref, name)
+        assert g.dtype == r.dtype and np.array_equal(g, r), f"the card route's {name} differs from the host copies'"
+    for g, r in zip(got.stats, ref.stats, strict=True):
+        assert np.array_equal(g, r), "the card route's window stats differ from the host copies'"
+    for gb, rb in zip(got.blocks, ref.blocks, strict=True):
+        for g, r in zip(gb, rb, strict=True):
+            assert (g.start, g.length, g.contig) == (r.start, r.length, r.contig)
+            assert np.array_equal(g.rows, r.rows) and np.array_equal(g.tri, r.tri), \
+                f"the card route's block at {g.start} differs from build_window_blocks'"
+    t0 = time.perf_counter()
+    for _ in range(5):
+        PC.walk_alignments(walks, read_seqs, dev, codes_ws=codes_ws)
+    route_ms = (time.perf_counter() - t0) / 5 * 1e3
+    pk = PC.JobPack(walks, read_seqs, codes_ws, pin=True)
+    inb = pk.staging.to(dev)
+    out = torch.empty(pk.out_bytes, dtype=torch.uint8, device=dev)
+    k_ms = cuda_ms(lambda: launch("pileup_cells", out.device, *pk.kernel_args(inb.data_ptr(), out.data_ptr())), 20)
+    # read once: the alignment records, the rows, the runs and the reads' codes;
+    # written once: the blocks, the trimers, the central bases, the insertions
+    n_read = sum(pk.at[b] - pk.at[a] for a, b in zip(pk.IN, pk.IN[1:]) if a not in ("block_off", "codes_w"))
+    n_bytes = n_read + pk.rows * pk.window + 2 * pk.n_tri + 9 * pk.n_ins
+    seconds, by = bound_s(n_bytes, 0)
+    bound = (seconds * 1e3, by)
+    n_alns = sum(len(w.alns) for w in walks)
+    print(f"[kernel pileup_cells] clonal30x pool job 0: {n_alns} alignments, {int(got.n_cells.sum())} cells, "
+          f"{pk.n_ins} insertions, {pk.n_blocks} blocks of {pk.rows} rows: == the host copies (cells, blocks, "
+          f"stats), one launch of the walk and one of the window stats a call; kernel {k_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({n_bytes / 1e6:.2f} MB read and written once, {100 * bound[0] / k_ms:.1f}%), "
+          f"card route (pack, copies, walk, stats, unpack) {route_ms:.2f} ms, host copies {host_ms:.1f} ms (host)",
+          flush=True)
+    return dict(ms=k_ms, bound=bound, route_ms=route_ms, host_ms=host_ms, alignments=n_alns, bytes=n_bytes)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -929,6 +1007,8 @@ def main(argv=None) -> int:
     bounds["window_stats"] = ws["clonal30x"]["bound"]
     cs = chain_phase(dev)
     bounds["chain_seeds"] = cs["bound"]
+    pc = pileup_cells_phase(dev)
+    bounds["pileup_cells"] = pc["bound"]
 
     # ---- 4. main path through the CLI
     from hairsplitter_tpu_torch.io.gfa import parse_gfa
@@ -999,6 +1079,12 @@ def main(argv=None) -> int:
             f"{cs_main} chain launches for {seeding_calls} map_reads calls that seed, not one each"
         print(f"[main] window-stats launches {ws_main} for the job; chain launches {cs_main}, one for each of "
               f"the {seeding_calls} map_reads calls that seed ({sum(seeding)} reads)", flush=True)
+        pc_main = main_launches["pileup_cells"]
+        cells5 = json.load(open(os.path.join(out, "stage_stats.json")))["create_new_contigs.cells"]
+        assert pc_main == 1, f"the job launched the CIGAR walk {pc_main} times, not once"
+        assert cells5["walked"] == 0 and cells5["reused"] > 0, f"stage 5 walked alignments again: {cells5}"
+        print(f"[main] CIGAR-walk launches {pc_main} for the job (stage 3); stage 5 reused the cells of "
+              f"{cells5['reused']:.0f} alignments and walked {cells5['walked']:.0f}", flush=True)
 
         # ---- 5. main path with MapConfig(use_myers=False): stage 2 on K2
         out_k2 = os.path.join(root, "out_k2")
@@ -1495,6 +1581,10 @@ def main(argv=None) -> int:
         # version is the host route (numpy and native C++), timed on the host
         entry("chain_seeds", "hairsplitter_tpu_torch/csrc/chain_seeds.cu", None,
               cs_main, 0, cs["ms"], cs["host_ms"]),
+        # no TPU kernel: the CIGAR walk is host numpy in the JAX package; its
+        # plain version is the host copies, timed on the host
+        entry("pileup_cells", "hairsplitter_tpu_torch/csrc/pileup_cells.cu", None,
+              pc_main, 0, pc["ms"], pc["host_ms"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

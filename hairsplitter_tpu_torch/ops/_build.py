@@ -31,6 +31,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 SOURCES = (
     "myers_rows.cu", "myers_fused.cu", "banded_dp.cu", "banded_fused.cu", "window_stats.cu", "chain_seeds.cu",
+    "pileup_cells.cu",
 )
 HEADERS = ("host_emulation.cuh", "myers_common.cuh", "banded_common.cuh")  # included by the sources: part of the digest
 NVCC_FLAGS = (
@@ -67,11 +68,30 @@ CHAIN_SEEDS_ARGTYPES = [
     ctypes.c_void_p,  # packed result
 ]
 
+# hs_pileup_cells' arguments before its stream, as hs_pileup_cells_host (the
+# host build of the same source) takes them
+PILEUP_CELLS_ARGTYPES = [
+    ctypes.c_void_p,  # alignment records int64 [n, 16]
+    ctypes.c_int64,  # n
+    ctypes.c_void_p,  # run ops int8
+    ctypes.c_void_p,  # run lengths int32
+    ctypes.c_void_p,  # read codes int8
+    ctypes.c_void_p,  # (alignment, window) block rows int64
+    ctypes.c_int64,  # window
+    ctypes.c_void_p,  # blocks int8 [rows, window]
+    ctypes.c_int64,  # block bytes
+    ctypes.c_void_p,  # trimers int8
+    ctypes.c_void_p,  # central bases int8
+    ctypes.c_void_p,  # insertion positions int64
+    ctypes.c_void_p,  # insertion bases int8
+    ctypes.c_void_p,  # error word int64
+]
+
 _lib = None
 build_info: dict = {}  # seconds, library path and ptxas report of the last build/load
 # this process's launches so far, by kernel (`hs_<kernel>` in the library)
 _launches = dict.fromkeys(
-    ("myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds"), 0
+    ("myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds", "pileup_cells"), 0
 )
 
 
@@ -241,6 +261,8 @@ def load_kernels() -> ctypes.CDLL:
         ]
         lib.hs_chain_seeds.restype = ctypes.c_int
         lib.hs_chain_seeds.argtypes = CHAIN_SEEDS_ARGTYPES + [ctypes.c_void_p]  # cudaStream_t
+        lib.hs_pileup_cells.restype = ctypes.c_int
+        lib.hs_pileup_cells.argtypes = PILEUP_CELLS_ARGTYPES + [ctypes.c_void_p]  # cudaStream_t
         _lib = lib
     return _lib
 

@@ -92,15 +92,18 @@ def unpack_window_stats(buf: torch.Tensor, nb: int, P: int):
     return tc, tn, cov, sums[:nb], sums[nb:]
 
 
-def window_stats_packed(flat: torch.Tensor, offsets: torch.Tensor, codes_w: torch.Tensor) -> torch.Tensor:
+def window_stats_packed(
+    flat: torch.Tensor, offsets: torch.Tensor, codes_w: torch.Tensor, out: torch.Tensor | None = None
+) -> torch.Tensor:
     """Statistics of a ragged batch of window blocks, in one byte buffer that
     `unpack_window_stats` reads: block b is flat[offsets[b]:offsets[b + 1]].
 
     flat: int8 [sum of rows, P] every block's rows one after another;
     offsets: int64 [nb + 1], rising from 0 to the row count; codes_w: int8
-    [nb, P]. CUDA tensors launch `csrc/window_stats.cu` once
-    (`window_stats_cuda`); CPU tensors take `window_stats_plain` block by
-    block. The results are those of `window_stats_batch` on each block."""
+    [nb, P]; out: the uint8 buffer to write (a new one if not given). CUDA
+    tensors launch `csrc/window_stats.cu` once (`window_stats_cuda`); CPU
+    tensors take `window_stats_plain` block by block. The results are those
+    of `window_stats_batch` on each block."""
     nb, P = codes_w.shape
     if flat.dim() != 2 or flat.shape[1] != P or offsets.shape != (nb + 1,):
         raise ValueError(
@@ -108,7 +111,9 @@ def window_stats_packed(flat: torch.Tensor, offsets: torch.Tensor, codes_w: torc
         )
     if flat.dtype != torch.int8 or codes_w.dtype != torch.int8 or offsets.dtype != torch.int64:
         raise TypeError("flat and codes_w must be int8 and offsets int64")
-    buf = torch.empty(window_stats_bytes(nb, P), dtype=torch.uint8, device=flat.device)
+    if out is not None and (out.shape != (window_stats_bytes(nb, P),) or out.dtype != torch.uint8):
+        raise ValueError(f"out must be uint8 [{window_stats_bytes(nb, P)}]")
+    buf = torch.empty(window_stats_bytes(nb, P), dtype=torch.uint8, device=flat.device) if out is None else out
     out = unpack_window_stats(buf, nb, P)
     if flat.device.type == "cuda":
         window_stats_cuda(flat, offsets, codes_w, out)

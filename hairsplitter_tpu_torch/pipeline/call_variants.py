@@ -3,12 +3,15 @@
 Port of `hairsplitter_tpu/pipeline/call_variants.py`. It follows the JAX
 package's accelerator branches on every device, with the same size gates:
 the device chi² path for >= 512 suspect columns (rescue: >= 512 candidates).
-The window column stats of every block of every pending contig take one
-route on every device: `finish_preps` hands them all to
-`ops/variants.py:window_stats_blocks`, one copy in, one pass and one copy
-back; on a CUDA device the pass is one launch of `csrc/window_stats.cu`,
-elsewhere its plain PyTorch version. It gives the integers of the JAX
-package's column stats.
+The pileup of every pending contig and its window column stats take one
+route on every device: `finish_preps` hands every contig's alignments to
+`ops/pileup_cells.py:walk_alignments`, which walks their CIGARs into the
+window blocks and every alignment's cells and computes the blocks' stats;
+on a CUDA device that is one copy in, one launch of `csrc/pileup_cells.cu`,
+one of `csrc/window_stats.cu` and one copy back, elsewhere the host copies
+of `pipeline/pileup.py` and the stats' plain PyTorch version. It gives the
+JAX package's blocks and the integers of its column stats. The cells stay
+in the job's store (`ContigPrep.store`), which stage 5 reads.
 
 Per contig: build dense pileup windows, run the device column-stat kernels,
 apply the suspect rules, then keep only *robust* variants — columns whose
@@ -33,7 +36,8 @@ import torch
 from .. import native as _native
 from ..constants import GAP, TRIMER_ABSENT, encode_seq
 from ..core.datatypes import Alignment
-from ..pipeline.pileup import WINDOW, build_window_blocks, orient_read
+from ..ops.pileup_cells import CellStore, ContigWalk, pack_contig, walk_alignments
+from ..pipeline.pileup import WINDOW
 from ..utils import tracing
 
 from ..ops.cluster import cw_numpy
@@ -42,7 +46,6 @@ from ..ops.variants import (
     partition_column_keep_packed,
     partition_rescue_keep_packed,
     suspect_mask,
-    window_stats_blocks,
 )
 
 
@@ -405,6 +408,9 @@ class ContigPrep:
     # deletions placed at the run INTERIOR, while the DP may place them at
     # the run start where the context is the preceding non-run bases
     hp_mask: np.ndarray | None = None
+    # the job's cell store (every pending contig's cells and blocks), which
+    # this contig's window blocks are views of and stage 5 reads
+    store: CellStore | None = None
 
     @property
     def error_rate(self) -> float:
@@ -413,10 +419,12 @@ class ContigPrep:
 
 @dataclass
 class PendingPrep:
-    """Host half of contig preparation: window blocks awaiting column stats."""
+    """Host half of contig preparation: the contig's alignments packed for
+    the walk, and the contig codes under each window block."""
 
     prep: ContigPrep
-    blocks: list
+    walk: ContigWalk
+    read_seqs: dict[int, str]
     codes_ws: list[np.ndarray]
 
 
@@ -427,14 +435,12 @@ def prepare_contig_host(
     read_seqs: dict[int, str],
     cfg: VariantCallConfig = VariantCallConfig(),
 ) -> PendingPrep:
-    """Host-side pileup tensorization of one contig (threadable); the column
-    stats run later in :func:`finish_preps` so the device work of *all*
-    contigs batches into a few calls."""
+    """Host-side packing of one contig (threadable): its alignments' runs and
+    window rows (`ops/pileup_cells.py:pack_contig`), its homopolymer mask and
+    contig codes. The walk and the column stats run later in
+    :func:`finish_preps`, for *all* contigs at once."""
     contig_codes = encode_seq(contig_seq)
-    oriented = [
-        orient_read(encode_seq(read_seqs[a.read_idx]), a.strand) for a in alignments
-    ]
-    blocks = build_window_blocks(len(contig_seq), alignments, oriented, cfg.window)
+    walk = pack_contig(contig_name, len(contig_seq), alignments, cfg.window)
     hp = np.zeros(len(contig_seq), dtype=bool)
     if len(contig_seq) > 1:
         same = contig_codes[1:] == contig_codes[:-1]
@@ -449,11 +455,12 @@ def prepare_contig_host(
         hp_mask=hp,
     )
     codes_ws: list[np.ndarray] = []
-    for blk in blocks:
+    for b in range(walk.block_rows.size):
+        start = b * cfg.window
         codes_w = np.full(cfg.window, 5, dtype=np.int8)
-        codes_w[: blk.length] = contig_codes[blk.start : blk.start + blk.length]
+        codes_w[: min(cfg.window, len(contig_seq) - start)] = contig_codes[start : start + cfg.window]
         codes_ws.append(codes_w)
-    return PendingPrep(prep=prep, blocks=blocks, codes_ws=codes_ws)
+    return PendingPrep(prep=prep, walk=walk, read_seqs=read_seqs, codes_ws=codes_ws)
 
 
 def finish_preps(
@@ -462,21 +469,28 @@ def finish_preps(
     *,
     device,
 ) -> dict[str, ContigPrep]:
-    """Column stats for every pending contig: every block of ALL contigs
-    goes to `window_stats_blocks` on `device` in one call (one "device_pass"
-    span), then the results are collected into the ContigPreps ("host_pass").
+    """Pileup and column stats of every pending contig: the alignments of
+    ALL contigs go to `walk_alignments` on `device` in one call (one
+    "device_pass" span), which returns the job's cell store with every
+    window block and its stats; they are then collected into the
+    ContigPreps ("host_pass"). The contigs of one job share their reads.
     `cfg` stays in the signature, as in the JAX package's; nothing here
     reads it."""
-    tris = [blk.tri for pp in pending for blk in pp.blocks]
-    if tris:
-        with tracing.span("device_pass", blocks=len(tris)):
-            tc, tn, cov, mm, cc = window_stats_blocks(tris, [c for pp in pending for c in pp.codes_ws], device)
+    store = None
+    if pending:
+        if any(pp.read_seqs is not pending[0].read_seqs for pp in pending):
+            raise ValueError("the pending contigs of one job share one read_seqs")
+        with tracing.span("device_pass", blocks=sum(len(pp.codes_ws) for pp in pending)):
+            store = walk_alignments([pp.walk for pp in pending], pending[0].read_seqs, device,
+                                    codes_ws=[c for pp in pending for c in pp.codes_ws])
+        tc, tn, cov, mm, cc = store.stats
     out: dict[str, ContigPrep] = {}
     with tracing.span("host_pass"):
         b = 0
-        for pp in pending:
+        for pp, blocks in zip(pending, store.blocks if store else []):
             prep = pp.prep
-            for blk in pp.blocks:
+            prep.store = store
+            for blk in blocks:
                 prep.mismatches += int(mm[b])
                 prep.cells += int(cc[b])
                 prep.win_stats.append((blk, tc[b], tn[b], cov[b]))

@@ -26,10 +26,10 @@ from ..constants import decode_seq, encode_seq
 from ..core.datatypes import Alignment
 from ..io.gfa import AssemblyGraph, Link
 from ..ops.consensus import consensus_from_cells, polish_iterative
+from ..ops.pileup_cells import CellStore, pack_contig, walk_alignments
 from ..ops.poa import polish_poa_multi
 from ..ops.triage import _backbone_badness, check_backbone, select_backbone
 from ..utils import tracing
-from .pileup import alignment_cells_full, orient_read
 from .separate_reads import ContigGroups
 from .unzip import DUMMY
 
@@ -170,9 +170,23 @@ def create_new_contigs(
     base_caller=None,  # medaka-equivalent NN caller (models/polisher.py)
     *,
     device,
+    cell_store: CellStore | None = None,
 ) -> ZipResult:
     """Build the zipped assembly graph from all contigs' window groups;
-    polishing remaps run on `device`."""
+    polishing remaps run on `device`.
+
+    Every read row's cells come from `cell_store` (stage 3's walk) where it
+    walked the contig's very alignment list; the alignments of the other
+    contigs with groups are walked here, in one `walk_alignments` call on
+    `device`. The "cells" spans count `reused` and `walked` alignments."""
+    walks, walked = [], None
+    for contig, seq in assembly.segments.items():
+        alns, groups = per_contig.get(contig, ([], None))
+        if groups is not None and alns and (cell_store is None or cell_store.find(contig, alns) is None):
+            walks.append(pack_contig(contig, len(seq), alns, 0))
+    if walks:
+        with tracing.span("cells"):
+            walked = walk_alignments(walks, read_seqs, device)
     new_graph = AssemblyGraph()
     summary: list[str] = []
     zips: dict[str, ContigZip] = {}
@@ -193,13 +207,15 @@ def create_new_contigs(
             zips[contig] = cz
             continue
 
-        with tracing.span("cells"):
-            # precompute cells (positions + central bases + insertions) per read row
-            cells = []
-            for a in alns:
-                oriented = orient_read(encode_seq(read_seqs[a.read_idx]), a.strand)
-                tpos, tri, ins_t, ins_c = alignment_cells_full(a, oriented)
-                cells.append((tpos, (np.asarray(tri, dtype=np.int16) // 25).astype(np.int8), ins_t, ins_c))
+        with tracing.span("cells") as sp:
+            # cells (positions + central bases + insertions) per read row
+            at = cell_store.find(contig, alns) if cell_store is not None else None
+            if at is not None:
+                cells = cell_store.cells(at, central=True)
+                sp.add(reused=len(alns), walked=0)
+            else:
+                cells = walked.cells(walked.find(contig, alns), central=True)
+                sp.add(reused=0, walked=len(alns))
 
         with tracing.span("consensus"):
             intervals = merge_intervals(

@@ -506,6 +506,7 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
     col_path = os.path.join(tmp_dir, "variants.col")
     err_path = os.path.join(tmp_dir, "error_rate.txt")
     variants: dict[str, ContigVariants] | None = None
+    cell_store = None  # stage 3's walk, which stage 5 reads
     if resume and os.path.exists(col_path) and os.path.exists(err_path):
         error_rate = float(open(err_path).read().strip())
         variants = read_col(col_path)
@@ -522,10 +523,11 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
     if variants is None:
         log.log("STAGE 3 calling variants")
         with stats.stage("call_variants") as stage:
-            # host pileup tensorization per contig (threaded), then ONE batched
-            # device pass over every contig's window blocks (finish_preps);
-            # distributed: each process handles its contig shard
-            with tracing.span("pileup"):
+            # host packing of each contig's alignments (threaded), then ONE
+            # walk of every contig's CIGARs into window blocks and cells, with
+            # the blocks' column stats (finish_preps); distributed: each
+            # process handles its contig shard
+            with tracing.span("pileup") as pile:
                 pending = [
                     pp
                     for _, pp in _contig_map(
@@ -539,8 +541,11 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
                         ),
                     )
                 ]
+                pile.add(alignments=sum(len(pp.walk.alns) for pp in pending),
+                         cells=sum(int(pp.walk.n_cells.sum()) for pp in pending))
             with tracing.span("stats"):
                 preps = finish_preps(pending, vcfg, device=device)
+            cell_store = next((p.store for p in preps.values()), None)
             total_mm = sum(p.mismatches for p in preps.values())
             total_cells = sum(p.cells for p in preps.values())
             if comm:
@@ -697,6 +702,7 @@ def _run_pipeline(assembly_path: str, reads_path: str, out_dir: str, cfg: Pipeli
             polish_mode=polish_mode,
             base_caller=base_caller,
             device=device,
+            cell_store=cell_store,
         )
         if base_caller is not None:
             # the NN caller's own share of stage 5: one call per read group and

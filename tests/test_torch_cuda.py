@@ -398,9 +398,10 @@ def _two_contig_job(device):
 
 
 def test_finish_preps_on_card_equals_cpu(cuda, tmp_path):
-    """Every block of both contigs in one device pass, on the card with one
-    launch and on the CPU with none; every field of every ContigPrep and the
-    stage's COL file equal to the CPU route's."""
+    """Both contigs' walk and every block's stats in one device pass, on the
+    card with one launch of each kernel and on the CPU with none; every
+    field of every ContigPrep (the blocks' cells too) and the stage's COL
+    file equal to the CPU route's."""
     from hairsplitter_tpu_torch.io.col_gro import write_col
     from hairsplitter_tpu_torch.pipeline import call_variants as cv
     from hairsplitter_tpu_torch.utils import tracing
@@ -418,7 +419,7 @@ def test_finish_preps_on_card_equals_cpu(cuda, tmp_path):
     ref, ref_launches, ref_under = run("cpu")
     got, launches, under = run(cuda)
     n_blocks = sum(len(p.win_stats) for p in ref.values())
-    assert launches == {"window_stats": 1} and ref_launches == {}
+    assert launches == {"pileup_cells": 1, "window_stats": 1} and ref_launches == {}
     assert under == ref_under == [("device_pass", {"blocks": n_blocks}), ("host_pass", {})]
     assert n_blocks >= 4
     for name in ref:
@@ -427,6 +428,7 @@ def test_finish_preps_on_card_equals_cpu(cuda, tmp_path):
         np.testing.assert_array_equal(g.hp_mask, r.hp_mask)
         for (gb, *gs), (rb, *rs) in zip(g.win_stats, r.win_stats, strict=True):
             assert gb.start == rb.start
+            assert np.array_equal(gb.rows, rb.rows) and np.array_equal(gb.tri, rb.tri)
             for x, y in zip(gs, rs):
                 assert x.dtype == y.dtype and np.array_equal(x, y)
     err = {d: min(sum(p.mismatches for p in preps.values()) / sum(p.cells for p in preps.values()), cfg.error_cap)

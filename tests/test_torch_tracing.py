@@ -135,7 +135,8 @@ def test_kernel_launch_counts_reads_the_four_kernels():
 
     counts = _build.kernel_launch_counts()
     assert distributed._build is _build
-    assert list(counts) == ["myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds"]
+    assert list(counts) == ["myers_fused", "myers_rows", "banded_fused", "banded_dp", "window_stats", "chain_seeds",
+                            "pileup_cells"]
     assert all(isinstance(v, int) and v >= 0 for v in counts.values())
     counts["myers_fused"] += 1  # the caller gets a copy
     assert _build.kernel_launch_counts()["myers_fused"] == counts["myers_fused"] - 1

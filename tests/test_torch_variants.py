@@ -21,6 +21,7 @@ from hairsplitter_tpu.io.col_gro import write_col as jax_write_col
 from hairsplitter_tpu.ops import variants as jax_variants
 import hairsplitter_tpu_torch.pipeline.call_variants as port_cv
 from hairsplitter_tpu_torch.io.col_gro import write_col
+from hairsplitter_tpu_torch.ops import pileup_cells as port_pileup_cells
 from hairsplitter_tpu_torch.ops import variants as port_variants
 from tests.torch_parity_data import call_stage3, mapped_strain_mix, spy_calls
 
@@ -36,7 +37,7 @@ def test_col_and_contig_variants_equal(mix, monkeypatch, tmp_path):
     haps, seqs, alns = mix
     monkeypatch.setattr(jax_cv, "_accel_available", lambda: True)
     corr_calls = spy_calls(monkeypatch, port_cv, "pairwise_column_correlation_packed")
-    stats_calls = spy_calls(monkeypatch, port_cv, "window_stats_blocks")
+    stats_calls = spy_calls(monkeypatch, port_pileup_cells, "window_stats_blocks")
     ref = call_stage3(jax_cv, haps[0], alns, seqs)
     got = call_stage3(port_cv, haps[0], alns, seqs, device="cpu")
     assert corr_calls and stats_calls, "the device branches did not run"

@@ -1,6 +1,7 @@
 """Stage 3's window statistics as a ragged batch (`ops/variants.py`:
 `pack_window_blocks`, `window_stats_packed`, `window_stats_blocks`) and the
-one route of `pipeline/call_variants.py:finish_preps` on every device.
+one route of `pipeline/call_variants.py:finish_preps` on every device (its
+walk of the alignments is `tests/test_torch_pileup_cells.py`'s).
 
 The CUDA kernel itself cannot run here. Its body (`csrc/window_stats.cu`:
 histogram, top-3, coverage and the per-column error counts) compiles for
@@ -157,80 +158,95 @@ def test_wrappers_reject_what_they_do_not_take():
 # ---------------------------------------------------------------- finish_preps' route
 
 
-def _pending(rows_per_contig, P=512, seed=9):
-    """PendingPreps of contigs made of `window_blocks`."""
-    from hairsplitter_tpu_torch.pipeline.pileup import WindowBlock
+CONTIGS = (("c0", 1500, 80), ("c1", 900, 40))  # name, length, alignments: 3 and 2 blocks of 512
+
+
+def _pending(window=512, seed=9):
+    """PendingPreps of two contigs of random alignments (`tests/
+    test_torch_pileup_cells.py`'s), one read dict."""
+    from tests.test_torch_pileup_cells import _alignment, _random_runs, _reads
 
     rng = np.random.default_rng(seed)
+    reads = _reads(rng, 50, 2000)
+    cfg = cv.VariantCallConfig(window=window)
     pending = []
-    for ci, rows in enumerate(rows_per_contig):
-        tris, codes = window_blocks(rng, rows, P)
-        blocks = [WindowBlock(f"c{ci}", b * P, P, np.arange(t.shape[0]), t) for b, t in enumerate(tris)]
-        prep = cv.ContigPrep(contig=f"c{ci}", length=P * len(rows), n_reads=max(rows), mismatches=0, cells=0)
-        pending.append(cv.PendingPrep(prep, blocks, codes))
+    for name, length, n in CONTIGS:
+        alns = [_alignment(rng, int(rng.integers(0, 50)), 2000, *_random_runs(rng, 30, 20), k % 2, contig=name,
+                           contig_len=length) for k in range(n)]
+        seq = "".join(rng.choice(list("ACGT"), length))
+        pending.append(cv.prepare_contig_host(name, seq, alns, reads, cfg))
     return pending
 
 
-def _run_finish(rows_per_contig, device):
+def _run_finish(pending, device):
     first = next(tracing._ids)
     with tracing.span("stats") as sp:
-        preps = cv.finish_preps(_pending(rows_per_contig), cv.VariantCallConfig(window=512), device=device)
+        preps = cv.finish_preps(pending, cv.VariantCallConfig(window=512), device=device)
     under = [(s.name, s.counts) for s in tracing.spans() if s.id > first and s.parent == sp.id]
     return preps, sp.counts, under
 
 
 def _fields(preps):
     return {
-        name: (p.mismatches, p.cells, [(blk.start, tc.tolist(), tn.tolist(), cov.tolist())
-                                      for blk, tc, tn, cov in p.win_stats])
+        name: (p.mismatches, p.cells, [(blk.start, blk.rows.tolist(), blk.tri.tolist(), tc.tolist(), tn.tolist(),
+                                        cov.tolist()) for blk, tc, tn, cov in p.win_stats])
         for name, p in preps.items()
     }
 
 
-ROWS = ((60, 64, 300), (257, 31))  # two contigs of ragged blocks, 31 to 300 rows
-
-
 def test_cpu_route_sends_every_block_in_one_pass(monkeypatch):
-    """On the CPU, as on CUDA, every block of every contig goes to one
-    `window_stats_blocks` call in one device_pass span; every field of
-    every ContigPrep equals the numpy twins', block by block."""
+    """On the CPU, as on CUDA, the alignments of every contig go to one walk
+    in one device_pass span, and every block of every contig to one
+    `window_stats_blocks` call; every field of every ContigPrep equals the
+    numpy twins' on `build_window_blocks`' blocks, block by block."""
+    from hairsplitter_tpu_torch.ops import pileup_cells as PC
+    from hairsplitter_tpu_torch.pipeline.pileup import build_window_blocks, orient_read
+    from hairsplitter_tpu_torch.constants import encode_seq
+
     calls = []
-    inner = cv.window_stats_blocks
+    inner = PC.window_stats_blocks
 
     def spy(tris, codes, device):
         calls.append((len(tris), torch.device(device).type))
         return inner(tris, codes, device)
 
-    monkeypatch.setattr(cv, "window_stats_blocks", spy)
-    preps, counts, under = _run_finish(ROWS, "cpu")
+    monkeypatch.setattr(PC, "window_stats_blocks", spy)
+    pending = _pending()
+    preps, counts, under = _run_finish(pending, "cpu")
     assert calls == [(5, "cpu")]
     assert counts == {} and under == [("device_pass", {"blocks": 5}), ("host_pass", {})]
-    for pp in _pending(ROWS):
-        p = preps[pp.prep.contig]
-        for (blk, tc, tn, cov), tri, code in zip(p.win_stats, [b.tri for b in pp.blocks], pp.codes_ws, strict=True):
-            ref = _twins(tri, code)
-            for g, r in zip((tc, tn, cov), ref):
+    for pp in pending:
+        p, w = preps[pp.prep.contig], pp.walk
+        assert p.store is preps["c0"].store
+        oriented = [orient_read(encode_seq(pp.read_seqs[a.read_idx]), a.strand) for a in w.alns]
+        blocks = build_window_blocks(w.length, w.alns, oriented, 512)
+        for (blk, tc, tn, cov), ref, code in zip(p.win_stats, blocks, pp.codes_ws, strict=True):
+            np.testing.assert_array_equal(blk.tri, ref.tri)
+            twins = _twins(ref.tri, code)
+            for g, r in zip((tc, tn, cov), twins):
                 assert g.dtype == np.int32
                 np.testing.assert_array_equal(g, r)
         assert (p.mismatches, p.cells) == tuple(
-            map(sum, zip(*[_twins(b.tri, c)[3:] for b, c in zip(pp.blocks, pp.codes_ws)])))
+            map(sum, zip(*[_twins(b.tri, c)[3:] for b, c in zip(blocks, pp.codes_ws)])))
 
 
 def test_cuda_route_sends_every_block_in_one_pass(monkeypatch):
-    """On CUDA every block of every contig goes to `window_stats_blocks` in
-    one call and one device_pass span: here the call is made on the CPU's
-    plain composition, so the route's packing and collection are held
-    against the CPU route, field for field."""
+    """On CUDA the alignments of every contig go to the card route in one
+    call and one device_pass span: here the call is made on the CPU's host
+    copies, so the route's choice and collection are held against the CPU
+    route, field for field."""
+    from hairsplitter_tpu_torch.ops import pileup_cells as PC
+
     calls = []
 
-    def on_cpu(tris, codes, device):
-        calls.append((len(tris), torch.device(device).type))
-        return V.window_stats_blocks(tris, codes, "cpu")
+    def on_cpu(walks, reads, device, codes_ws):
+        calls.append((len(walks), len(codes_ws), torch.device(device).type))
+        return PC._walk_host(walks, reads, "cpu", codes_ws)
 
-    ref, _, _ = _run_finish(ROWS, "cpu")
-    monkeypatch.setattr(cv, "window_stats_blocks", on_cpu)
-    got, _, under = _run_finish(ROWS, "cuda")
-    assert calls == [(5, "cuda")]
+    ref, _, _ = _run_finish(_pending(), "cpu")
+    monkeypatch.setattr(PC, "_walk_card", on_cpu)
+    got, _, under = _run_finish(_pending(), "cuda")
+    assert calls == [(2, 5, "cuda")]
     assert under == [("device_pass", {"blocks": 5}), ("host_pass", {})]
     assert _fields(got) == _fields(ref)
 
@@ -238,9 +254,12 @@ def test_cuda_route_sends_every_block_in_one_pass(monkeypatch):
 def test_finish_preps_with_no_contig_passes_nothing(monkeypatch):
     """A process that owns no contig (a shard of a job over several
     devices can be empty) sends nothing to the device."""
-    def refuse(*a, **k):
-        raise AssertionError("window_stats_blocks called with no block")
+    from hairsplitter_tpu_torch.ops import pileup_cells as PC
 
-    monkeypatch.setattr(cv, "window_stats_blocks", refuse)
-    preps, _, under = _run_finish((), "cpu")
+    def refuse(*a, **k):
+        raise AssertionError("walk_alignments called with no contig")
+
+    monkeypatch.setattr(cv, "walk_alignments", refuse)
+    monkeypatch.setattr(PC, "window_stats_blocks", refuse)
+    preps, _, under = _run_finish([], "cpu")
     assert preps == {} and under == [("host_pass", {})]

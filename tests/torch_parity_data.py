@@ -8,8 +8,6 @@ import numpy as np
 import pytest
 import torch
 
-from hairsplitter_tpu.utils import sim
-
 
 @pytest.fixture(scope="module")
 def one_torch_thread():
@@ -58,6 +56,8 @@ def strain_mix(length: int, strains: int, coverage: float, read_len: int, err: f
     """Collapsed assembly (first haplotype) + reads of `strains` haplotypes
     at 1% divergence (the repo's pipeline-bench recipe,
     `scripts/bench_pipeline.py:build_dataset`)."""
+    from hairsplitter_tpu.utils import sim
+
     rng = np.random.default_rng(seed)
     haps = sim.make_haplotypes(length, strains, 0.01, rng)
     reads = sim.simulate_reads(
